@@ -1,0 +1,112 @@
+"""Weights for the port: carried across from flax trees, or made from a seed.
+
+The port's modules carry the flax scope names as attribute names, so a flax
+variables tree ({"params": ..., "batch_stats": ...}, nested dicts of numpy
+arrays) maps onto a state_dict by a transpose table:
+
+  conv kernel [kh, kw, ci, co] (HWIO)  -> weight [co, ci, kh, kw] (OIHW)
+  dense kernel [in, out]               -> weight [out, in]
+  BatchNorm / LayerNorm scale, bias    -> weight, bias
+  batch_stats mean, var                -> running_mean, running_var
+
+`init_posenet_weights` / `init_yolo_weights` make He-scaled weights from a
+numpy seed with every BatchNorm's scale, bias, mean and variance randomised
+(bn3 included), so BN folding and the residual branches are never trivial.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.posenet import PoseNet, PoseNetConfig
+from .models.yolo.model import YoloConfig, YoloV8
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v, np.float32)
+
+
+def _flax_to_state_dict(variables) -> dict:
+    sd = {}
+    for path, a in _leaves(variables["params"]):
+        scope, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            sd[f"{scope}.weight"] = a
+        elif leaf == "scale":
+            sd[f"{scope}.weight"] = a
+        elif leaf == "bias":
+            sd[f"{scope}.bias"] = a
+        else:
+            raise KeyError(f"unexpected flax param {'/'.join(path)}")
+    for path, a in _leaves(variables.get("batch_stats", {})):
+        scope, leaf = ".".join(path[:-1]), path[-1]
+        sd[f"{scope}.running_{leaf}"] = a
+        sd[f"{scope}.num_batches_tracked"] = np.zeros((), np.int64)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def posenet_from_jax(variables) -> dict:
+    """A flax PoseNet tree -> the port's PoseNet state_dict."""
+    return _flax_to_state_dict(variables)
+
+
+def yolo_from_jax(variables) -> dict:
+    """A flax YoloV8 tree -> the port's YoloV8 state_dict."""
+    return _flax_to_state_dict(variables)
+
+
+def _random_state(module: torch.nn.Module, seed: int) -> dict:
+    """He-scaled random weights for every entry of module's state_dict."""
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    sd = {}
+    for key, shape in shapes.items():
+        scope, leaf = key.rsplit(".", 1)
+        is_bn = f"{scope}.running_mean" in shapes
+        residual_end = scope.endswith(("bn3", "downsample_bn"))
+        if leaf == "num_batches_tracked":
+            a = np.zeros((), np.int64)
+        elif leaf == "running_mean":
+            a = rng.normal(0.0, 0.1, shape)
+        elif leaf == "running_var":
+            a = rng.uniform(0.5, 1.5, shape)
+        elif leaf == "weight" and is_bn:
+            # residual-branch ends get smaller gammas so that 16 stacked
+            # blocks keep activations in range; never zero
+            a = rng.uniform(0.2, 0.5, shape) if residual_end else rng.uniform(0.5, 1.2, shape)
+        elif leaf == "weight" and len(shape) == 1:  # LayerNorm
+            a = rng.uniform(0.8, 1.2, shape)
+        elif leaf == "weight":
+            fan_in = int(np.prod(shape[1:]))
+            gain = 2.0 if len(shape) == 4 else 1.0  # He for convs, LeCun for dense
+            a = rng.normal(0.0, np.sqrt(gain / fan_in), shape)
+        elif leaf == "bias":
+            a = rng.normal(0.0, 0.1 if is_bn else 0.02, shape)
+        else:
+            raise KeyError(f"no init rule for {key}")
+        sd[key] = torch.from_numpy(np.asarray(a, np.int64 if leaf == "num_batches_tracked"
+                                              else np.float32))
+    return sd
+
+
+def init_posenet_weights(cfg: PoseNetConfig, seed: int) -> dict:
+    """Seeded PoseNet state_dict (no checkpoint needed). The translation
+    head's z bias starts at 0.5 m, the reference's typical-depth init."""
+    with torch.device("meta"):
+        model = PoseNet(cfg)
+    sd = _random_state(model, seed)
+    sd["trans_out.bias"][2] = 0.5
+    return sd
+
+
+def init_yolo_weights(cfg: YoloConfig, seed: int) -> dict:
+    """Seeded YoloV8 state_dict."""
+    with torch.device("meta"):
+        model = YoloV8(cfg)
+    return _random_state(model, seed)
