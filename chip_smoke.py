@@ -20,8 +20,9 @@ Phases, each printed on its own line with its seconds:
      ResNet50 towers at 224, attention dim 2048) with seeded weights, folded
      bf16 towers with the stem and layer1 kernels, over 3 requests of 8
      frames; checks outputs, launch counts (2 stem + 2 layer1 per request),
-     equal boxes and tower features within a bf16 envelope against the
-     float pipeline;
+     equal boxes, and tower features and poses within a bf16 envelope
+     against the float pipeline; prints the requests' host-clock latency
+     as a smoke reading, not a throughput;
   5. add: ADD / ADD-S of the slice's poses against seeded ground truth
      through the nearest-point kernel, against the plain version;
   6. kernels: one JSON line with every kernel's numbers.
@@ -57,6 +58,7 @@ F32_RTOL = 1e-4        # kernel vs plain in f32: max err <= F32_RTOL * max(1, |r
 BF16_MEAN_REL = 0.02   # bf16 kernel vs f32 plain: mean err < 0.02 * std(ref)
 BF16_MAX_REL = 0.25    # ... and max err < 0.25 * std(ref)
 FEAT_REL_L2 = 0.05     # folded bf16 vs float f32 tower features, relative L2
+POSE_ATOL = 0.01       # folded bf16 vs float f32 poses: quaternion components, metres
 ADDMIN_ATOL = 1e-6     # metres, kernel (difference form) vs plain (expansion)
 
 
@@ -321,6 +323,10 @@ def phase_slice(pipe, float_pipe, frames, depths):
           "bbox differs between folded and float pipelines")
     rot_diff = (ref["rotation"] - outs[0]["rotation"]).abs().max().item()
     trans_diff = (ref["translation"] - outs[0]["translation"]).abs().max().item()
+    check(rot_diff <= POSE_ATOL,
+          f"rotation: folded vs float max diff {rot_diff:.3g} > {POSE_ATOL}")
+    check(trans_diff <= POSE_ATOL,
+          f"translation: folded vs float max diff {trans_diff:.3g} m > {POSE_ATOL} m")
     with torch.inference_mode():
         st = pipe.crop_stage(f, d)
         rel = {}
@@ -334,8 +340,9 @@ def phase_slice(pipe, float_pipe, frames, depths):
     log(f"  tower features rel L2 err (folded bf16 vs float f32): {rel}; "
         f"pose diff rot {rot_diff:.3g} trans {trans_diff:.3g} m")
     med = statistics.median(lat)
-    log(f"  request latency ms {[round(x, 3) for x in lat]} median {med:.3f}; "
-        f"{BATCH / med * 1e3:.1f} frames/s at batch {BATCH} (host clock, TF32 off)")
+    log(f"  smoke reading, not a throughput: request latency ms {[round(x, 3) for x in lat]} "
+        f"median {med:.3f}, {BATCH / med * 1e3:.1f} frames/s at batch {BATCH} "
+        f"(host clock, {N_REQUESTS} requests, TF32 off)")
     return outs[-1], counts, {"latency_ms": lat, "fps": BATCH / med * 1e3}
 
 
@@ -398,7 +405,6 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -443,7 +449,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[phase 6 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
-        + f"; serving {serving['fps']:.1f} frames/s ({time.perf_counter() - t_all:.1f}s total)")
+        + f"; serving smoke reading {serving['fps']:.1f} frames/s "
+        f"({time.perf_counter() - t_all:.1f}s total)")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

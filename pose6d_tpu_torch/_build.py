@@ -70,10 +70,10 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in sources())
 
 
-def build(force: bool = False) -> float:
+def build() -> float:
     """Compile csrc/*.cu with one nvcc call if the library is missing or
-    stale (or `force`); returns the seconds spent (0.0 when up to date)."""
-    if not force and not _stale():
+    stale; returns the seconds spent (0.0 when up to date)."""
+    if not _stale():
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
