@@ -15,17 +15,27 @@ Phases, each printed on its own line with its seconds:
      in bf16 against the f32 plain version with a bf16 envelope; then its
      time (CUDA events, median of 20 after warm-up) beside the plain
      version's, one PyTorch library computation of the same function and
-     the card's bound for the work;
-  4. slice: PosePipeline rgbd at full width (YOLOv8n on 640x480 frames, two
-     ResNet50 towers at 224, attention dim 2048) with seeded weights, folded
-     bf16 towers with the stem and layer1 kernels, over 3 requests of 8
-     frames; checks outputs, launch counts (2 stem + 2 layer1 per request),
-     equal boxes, and tower features and poses within a bf16 envelope
-     against the float pipeline; prints the requests' host-clock latency
-     as a smoke reading, not a throughput;
-  5. add: ADD / ADD-S of the slice's poses against seeded ground truth
+     the card's bound for the work. The stage kernel runs stages 1-4 on the
+     rgbd_geometric tower's own activations, and fused_layer1 (the same
+     kernel at stage 1 behind the rgbd path's own launch count) must equal
+     fused_stage at stage 1 bit for bit;
+  4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
+     frames, two ResNet50 towers at 224, attention dim 2048) with seeded
+     weights, folded bf16 towers with the stem and layer1 kernels, over 3
+     requests of 8 frames; checks outputs, launch counts (2 stem + 2 layer1
+     per request), equal boxes, and tower features and poses within a bf16
+     envelope against the float pipeline; prints the requests' host-clock
+     latency as a smoke reading, not a throughput;
+  5. slice rgbd_geometric: the same for PosePipeline rgbd_geometric (one
+     ResNet50 at 224, BN/ReLU rotation head, translation from the f32 depth
+     crop at the box centre) with the stem and stage 1-2 kernels: 1 stem,
+     1 stage-1 and 1 stage-2 launch per request, boxes and translations
+     equal to the float pipeline's, features and rotations within the
+     envelope;
+  6. add: ADD / ADD-S of each slice's poses against seeded ground truth
      through the nearest-point kernel, against the plain version;
-  6. kernels: one JSON line with every kernel's numbers.
+  7. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice and add runs.
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
 the script exits non-zero without it. f32 comparisons run with TF32 off
@@ -34,6 +44,7 @@ for both cuDNN convolutions and matmuls.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -57,6 +68,7 @@ PEAK_BYTES_S = 3.35e12
 F32_RTOL = 1e-4        # kernel vs plain in f32: max err <= F32_RTOL * max(1, |ref|max)
 BF16_MEAN_REL = 0.02   # bf16 kernel vs f32 plain: mean err < 0.02 * std(ref)
 BF16_MAX_REL = 0.25    # ... and max err < 0.25 * std(ref)
+STAGES_SERVED = (1, 2)  # rgbd_geometric folded serving: fused_stage for these
 FEAT_REL_L2 = 0.05     # folded bf16 vs float f32 tower features, relative L2
 POSE_ATOL = 0.01       # folded bf16 vs float f32 poses: quaternion components, metres
 ADDMIN_ATOL = 1e-6     # metres, kernel (difference form) vs plain (expansion)
@@ -125,7 +137,89 @@ def compare_bf16(got, want_f32, what):
 # ----------------------------------------------------------------- phases
 
 
-def phase_kernels(pipe, tower_inputs, rng):
+def stage_macs(stage: int) -> int:
+    """Multiply-adds of one image through ResNet50 stage `stage` at 224."""
+    from pose6d_tpu_torch.ops.fused_block import STAGE_CFGS
+
+    _, n_blocks, stride, cin, cmid, cout, h, w = STAGE_CFGS[stage]
+    ho, wo = h // stride, w // stride
+    macs = h * w * cin * cmid + ho * wo * cin * cout  # block 0's conv1, shortcut
+    macs += (n_blocks - 1) * ho * wo * cout * cmid   # later blocks' conv1
+    return macs + n_blocks * ho * wo * (9 * cmid * cmid + cmid * cout)
+
+
+def library_tree(tree, stage: int) -> dict:
+    """One stage's folded convs as cuDNN takes them: bf16, channels-last."""
+    prefix = f"layer{stage}_"
+    return {k: {"w": v["w"].to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+                "b": v["b"].to(torch.bfloat16)} for k, v in tree.items() if k.startswith(prefix)}
+
+
+def library_stage(h, stage: int, lib_tree: dict):
+    """The stage as a sequence of cuDNN convolutions on an NCHW view (the
+    library yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from pose6d_tpu_torch.ops.fused_block import STAGE_CFGS
+
+    name, n_blocks, stride = STAGE_CFGS[stage][:3]
+
+    def conv(t, key, s=1, padding=0):
+        e = lib_tree[key]
+        return F.conv2d(t, e["w"], e["b"], s, padding)
+
+    for j in range(n_blocks):
+        blk, s = f"{name}_{j}/", stride if j == 0 else 1
+        y = F.relu(conv(h, blk + "conv1"))
+        y = F.relu(conv(y, blk + "conv2", s, 1))
+        y = conv(y, blk + "conv3")
+        h = F.relu(y + (conv(h, blk + "downsample", s) if j == 0 else h))
+    return h
+
+
+def stage_rows(geo_pipe, rgb):
+    """fused_stage for stages 1-4 on the rgbd_geometric tower: the stem
+    kernel's output of the request's crops feeds stage 1, each stage's
+    kernel output the next. f32 and bf16 against the plain version, stage 1
+    bit-equal to fused_layer1 (the same kernel behind its own count), then
+    timed."""
+    from pose6d_tpu_torch.ops import fused_block as fb
+    from pose6d_tpu_torch.ops.quant import fold_bn_resnet
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tree = fold_bn_resnet(geo_pipe.posenet.backbone)
+    x = fb.fused_stem(rgb.contiguous(), fb.pack_stem_weights(tree, bf16))
+    rows = []
+    for stage in fb.STAGE_CFGS:
+        what = f"fused_stage s{stage}"
+        w32, wbf = fb.pack_stage_weights(tree, stage, f32), fb.pack_stage_weights(tree, stage, bf16)
+        err = compare_f32(fb.fused_stage(x.float(), w32, stage),
+                          fb.reference_stage(x.float(), w32, stage), what)
+        oracle = fb.reference_stage(x.float(), tuple(t.float() for t in wbf), stage)
+        out = fb.fused_stage(x, wbf, stage)
+        mean_e, max_e = compare_bf16(out, oracle, what)
+        if stage == 1:
+            for xs, ws in ((x.float(), w32), (x, wbf)):
+                check(torch.equal(fb.fused_stage(xs, ws, 1), fb.fused_layer1(xs, ws)),
+                      f"fused_stage s1 and fused_layer1 differ in {xs.dtype}")
+        sync(x.device)
+        x_nchw, lib_tree = x.permute(0, 3, 1, 2), library_tree(tree, stage)
+        b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * stage_macs(stage), bf16)
+        rows.append({
+            "name": f"fused_stage_s{stage}", "route": "cuda",
+            "source": "pose6d_tpu_torch/csrc/stage.cu",
+            "replaces": "pose6d_tpu/ops/pallas_block.py:310", "max_abs_err": err,
+            "ms": cuda_ms(lambda: fb.fused_stage(x, wbf, stage)),
+            "plain_ms": cuda_ms(lambda: fb.reference_stage(x, wbf, stage)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lambda: library_stage(x_nchw, stage, lib_tree)),
+            "bf16_mean_err": mean_e, "bf16_max_err": max_e,
+        })
+        x = out
+    return rows
+
+
+def phase_kernels(pipe, geo_pipe, tower_inputs, rng):
     """Each kernel against its plain version at the serving shapes, then
     timed beside the plain version, a library computation and its bound."""
     import torch.nn.functional as F
@@ -172,35 +266,20 @@ def phase_kernels(pipe, tower_inputs, rng):
     oracle = fb.reference_layer1(x.float(), tuple(t.float() for t in wbf))
     mean_e, max_e = compare_bf16(fb.fused_layer1(x, wbf), oracle, "fused_layer1")
     sync(x.device)
-    lib_tree = {k: {"w": v["w"].to(bf16).contiguous(memory_format=torch.channels_last),
-                    "b": v["b"].to(bf16)} for k, v in l1_tree.items() if k.startswith("layer1_")}
-
-    def library_layer1(h):
-        def conv(t, name, padding=0):
-            e = lib_tree[name]
-            return F.conv2d(t, e["w"], e["b"], padding=padding)
-
-        for j in range(3):
-            blk = f"layer1_{j}/"
-            y = F.relu(conv(h, blk + "conv1"))
-            y = F.relu(conv(y, blk + "conv2", 1))
-            y = conv(y, blk + "conv3")
-            h = F.relu(y + (conv(h, blk + "downsample") if j == 0 else h))
-        return h
-
     x_nchw = x.permute(0, 3, 1, 2)
+    lib_tree = library_tree(l1_tree, 1)
     out = fb.fused_layer1(x, wbf)
-    macs = 64 * 64 + 576 * 64 + 64 * 256 + 64 * 256 + 2 * (256 * 64 + 576 * 64 + 64 * 256)
-    b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * 56 * 56 * macs, bf16)
+    b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * stage_macs(1), bf16)
     rows.append({
-        "name": "fused_layer1", "route": "cuda", "source": "pose6d_tpu_torch/csrc/layer1.cu",
+        "name": "fused_layer1", "route": "cuda", "source": "pose6d_tpu_torch/csrc/stage.cu",
         "replaces": "pose6d_tpu/ops/pallas_block.py:187", "max_abs_err": err,
         "ms": cuda_ms(lambda: fb.fused_layer1(x, wbf)),
         "plain_ms": cuda_ms(lambda: fb.reference_layer1(x, wbf)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: library_layer1(x_nchw)),
+        "library_ms": cuda_ms(lambda: library_stage(x_nchw, 1, lib_tree)),
         "bf16_mean_err": mean_e, "bf16_max_err": max_e,
     })
+    rows += stage_rows(geo_pipe, tower_inputs["rgb"])
 
     # addmin on centred model points under two seeded poses per sample
     pred, gt = seeded_point_pairs(rng, tower_inputs["rgb"].device)
@@ -284,7 +363,13 @@ def make_requests(rng):
     return frames, depths
 
 
-def phase_slice(pipe, float_pipe, frames, depths):
+def phase_slice(pipe, float_pipe, frames, depths, expected: dict, exact_translation: bool):
+    """3 requests through the folded pipeline with the launch counts set to
+    0 just before and read just after; `expected` is the kernel launches
+    per request, and no other kernel may launch. Then the first request
+    against the float pipeline: equal boxes, tower features and rotations
+    within the bf16 envelope, translations within it or, where they come
+    from the depth map (rgbd_geometric), equal."""
     from pose6d_tpu_torch import _build
     from pose6d_tpu_torch.models.posenet_serving import backbone_features
 
@@ -305,9 +390,11 @@ def phase_slice(pipe, float_pipe, frames, depths):
         outs.append(out)
     counts = dict(_build.launch_counts)
     log(f"  launches over {N_REQUESTS} requests: {counts}")
-    for key, per_call in (("fused_stem_c3", 1), ("fused_stem_c1", 1), ("fused_layer1", 2)):
-        check(counts.get(key, 0) == per_call * N_REQUESTS,
-              f"{key}: {counts.get(key, 0)} launches, expected {per_call * N_REQUESTS}")
+    check(set(counts) == set(expected), f"kernels launched {sorted(counts)}, "
+                                        f"expected {sorted(expected)}")
+    for key, per_call in expected.items():
+        check(counts[key] == per_call * N_REQUESTS,
+              f"{key}: {counts[key]} launches, expected {per_call * N_REQUESTS}")
     for out in outs:
         for k in ("rotation", "translation", "bbox_xywh"):
             check(bool(torch.isfinite(out[k]).all()), f"{k} not finite")
@@ -325,15 +412,19 @@ def phase_slice(pipe, float_pipe, frames, depths):
     trans_diff = (ref["translation"] - outs[0]["translation"]).abs().max().item()
     check(rot_diff <= POSE_ATOL,
           f"rotation: folded vs float max diff {rot_diff:.3g} > {POSE_ATOL}")
-    check(trans_diff <= POSE_ATOL,
-          f"translation: folded vs float max diff {trans_diff:.3g} m > {POSE_ATOL} m")
+    if exact_translation:
+        check(trans_diff == 0.0, f"translation: folded vs float differ by {trans_diff:.3g} m")
+    else:
+        check(trans_diff <= POSE_ATOL,
+              f"translation: folded vs float max diff {trans_diff:.3g} m > {POSE_ATOL} m")
     with torch.inference_mode():
-        st = pipe.crop_stage(f, d)
+        st = pipe.crop_stage(f, K.expand(BATCH, 3, 3), d)
         rel = {}
-        for name, key in (("rgb_backbone", "rgb"), ("depth_backbone", "depth")):
-            got = backbone_features(pipe.posenet, name, st[key], pipe.cfg.compute_dtype,
+        towers = pipe.posenet.tower_inputs(st["inputs"]["rgb"], st["inputs"].get("depth"))
+        for name, x in towers.items():
+            got = backbone_features(pipe.posenet, name, x, pipe.cfg.compute_dtype,
                                     pipe._folded[name])
-            want = getattr(float_pipe.posenet, name)(st[key].float())
+            want = getattr(float_pipe.posenet, name)(x.float())
             rel[name] = ((got - want).norm() / want.norm()).item()
             check(rel[name] < FEAT_REL_L2,
                   f"{name}: folded bf16 features rel L2 err {rel[name]:.3g} >= {FEAT_REL_L2}")
@@ -374,27 +465,36 @@ def phase_add(out, rng):
 
 
 def setup(rng, device):
-    """Seeded full-width weights, the folded pipeline (stem and layer1
-    kernels on), the float pipeline on the same weights, the requests, and
+    """Seeded full-width weights; per path (rgbd with the stem and layer1
+    kernels, rgbd_geometric with the stem and stage 1-2 kernels) the folded
+    pipeline and the float pipeline on the same weights; the requests; and
     the first request's tower inputs."""
     from pose6d_tpu_torch.convert import init_posenet_weights, init_yolo_weights
     from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
     from pose6d_tpu_torch.models.posenet import PoseNetConfig
     from pose6d_tpu_torch.models.yolo.model import YoloConfig
 
-    pose_cfg = PoseNetConfig(variant="rgbd")
     yolo_cfg = YoloConfig()
-    pose_state = init_posenet_weights(pose_cfg, SEED)
     yolo_state = init_yolo_weights(yolo_cfg, SEED + 1)
-    cfg = PipelineConfig(variant="rgbd", img_size=224, compute_dtype=torch.bfloat16)
-    pipe = PosePipeline(cfg, yolo_cfg, yolo_state, pose_state, pose_cfg, device=device)
-    pipe.fold_backbones(pallas_stem=True, pallas_layer1=True)
-    float_pipe = PosePipeline(cfg, yolo_cfg, yolo_state, pose_state, pose_cfg, device=device)
+    paths = {}
+    for i, (variant, fold) in enumerate((
+            ("rgbd", {"pallas_stem": True, "pallas_layer1": True}),
+            ("rgbd_geometric", {"pallas_stem": True, "pallas_stages": STAGES_SERVED}))):
+        pose_cfg = PoseNetConfig(variant=variant)
+        pose_state = init_posenet_weights(pose_cfg, SEED + 2 * i)
+        cfg = PipelineConfig(variant=variant, img_size=224, compute_dtype=torch.bfloat16)
+
+        def make():
+            return PosePipeline(cfg, yolo_cfg, yolo_state, pose_state, pose_cfg, device=device)
+
+        paths[variant] = (make().fold_backbones(**fold), make())
     frames, depths = make_requests(rng)
+    pipe = paths["rgbd"][0]
     with torch.inference_mode():
-        tower_inputs = pipe.crop_stage(torch.from_numpy(frames[0]).to(device),
-                                       torch.from_numpy(depths[0]).to(device))
-    return pipe, float_pipe, frames, depths, tower_inputs
+        K = torch.from_numpy(LINEMOD_K).to(device).expand(BATCH, 3, 3)
+        tower_inputs = pipe.crop_stage(torch.from_numpy(frames[0]).to(device), K,
+                                       torch.from_numpy(depths[0]).to(device))["inputs"]
+    return paths, frames, depths, tower_inputs
 
 
 def main() -> int:
@@ -423,34 +523,43 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    pipe, float_pipe, frames, depths, tower_inputs = setup(rng, "cuda")
+    paths, frames, depths, tower_inputs = setup(rng, "cuda")
     log(f"  set-up: seeded weights, pipelines and requests ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     with torch.inference_mode():
-        rows = phase_kernels(pipe, tower_inputs, rng)
-    log(f"[phase 3 kernels] each kernel matches its plain version in f32 and bf16 "
-        f"({time.perf_counter() - t0:.1f}s)")
+        rows = phase_kernels(paths["rgbd"][0], paths["rgbd_geometric"][0], tower_inputs, rng)
+    log(f"[phase 3 kernels] each kernel matches its plain version in f32 and bf16, "
+        f"fused_stage s1 equals fused_layer1 bit for bit ({time.perf_counter() - t0:.1f}s)")
 
-    t0 = time.perf_counter()
-    out, counts, serving = phase_slice(pipe, float_pipe, frames, depths)
-    log(f"[phase 4 slice] rgbd folded serving, {N_REQUESTS} requests of {BATCH} frames "
-        f"{FRAME_W}x{FRAME_H} on {smi} ({time.perf_counter() - t0:.1f}s)")
+    launches, outs, serving = collections.Counter(), {}, {}
+    for n, (variant, expected, exact) in enumerate((
+            ("rgbd", {"fused_stem_c3": 1, "fused_stem_c1": 1, "fused_layer1": 2}, False),
+            ("rgbd_geometric", {"fused_stem_c3": 1, **{f"fused_stage_s{s}": 1
+                                                       for s in STAGES_SERVED}}, True))):
+        t0 = time.perf_counter()
+        outs[variant], counts, serving[variant] = phase_slice(
+            *paths[variant], frames, depths, expected, exact)
+        launches.update(counts)
+        log(f"[phase {4 + n} slice {variant}] folded serving, {N_REQUESTS} requests of "
+            f"{BATCH} frames {FRAME_W}x{FRAME_H} on {smi} ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     with torch.inference_mode():
-        n_addmin = phase_add(out, rng)
-    log(f"[phase 5 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
+        for variant, out in outs.items():
+            log(f"  {variant}:")
+            launches["pairwise_min_dist"] += phase_add(out, rng)
+    log(f"[phase 6 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
 
-    launches = {**counts, "pairwise_min_dist": n_addmin}
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(f"[phase 6 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 7 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
-        + f"; serving smoke reading {serving['fps']:.1f} frames/s "
-        f"({time.perf_counter() - t_all:.1f}s total)")
+        + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
+                                                   for v, r in serving.items())
+        + f" ({time.perf_counter() - t_all:.1f}s total)")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

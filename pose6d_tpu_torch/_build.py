@@ -40,10 +40,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, w, b, out, B, C, is_bf16, stream
     "pose6d_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, weights (array of 20 pointers), t1, t2, ya, yb, out, B, is_bf16,
-    # stream
-    "pose6d_layer1_forward": [_P, ctypes.POINTER(_P), _P, _P, _P, _P, _P, _I,
-                              _I, _P],
+    # x, weights (array of n_weights pointers), n_weights, n_blocks, t1, t2,
+    # ya, yb, out, B, h, w, stride, cin, cmid, cout, is_bf16, stream
+    "pose6d_stage_forward": [_P, ctypes.POINTER(_P), _I, _I, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # pred, gt, out, B, P, stream
     "pose6d_addmin_forward": [_P, _P, _P, _I, _I, _P],
 }

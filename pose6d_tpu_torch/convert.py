@@ -69,7 +69,7 @@ def _random_state(module: torch.nn.Module, seed: int) -> dict:
     for key, shape in shapes.items():
         scope, leaf = key.rsplit(".", 1)
         is_bn = f"{scope}.running_mean" in shapes
-        residual_end = scope.endswith(("bn3", "downsample_bn"))
+        residual_end = ".layer" in scope and scope.endswith(("bn3", "downsample_bn"))
         if leaf == "num_batches_tracked":
             a = np.zeros((), np.int64)
         elif leaf == "running_mean":
@@ -96,12 +96,16 @@ def _random_state(module: torch.nn.Module, seed: int) -> dict:
 
 
 def init_posenet_weights(cfg: PoseNetConfig, seed: int) -> dict:
-    """Seeded PoseNet state_dict (no checkpoint needed). The translation
-    head's z bias starts at 0.5 m, the reference's typical-depth init."""
+    """Seeded PoseNet state_dict for any variant (no checkpoint needed).
+    The learned z starts at 0.5 m, the reference's typical-depth init: the
+    translation head's z bias (rgb, rgbd) or the z head's bias
+    (rgb_geometric)."""
     with torch.device("meta"):
         model = PoseNet(cfg)
     sd = _random_state(model, seed)
-    sd["trans_out.bias"][2] = 0.5
+    for key, index in (("trans_out.bias", 2), ("z_out.bias", 0)):
+        if key in sd:
+            sd[key][index] = 0.5
     return sd
 
 

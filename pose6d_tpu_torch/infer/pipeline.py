@@ -1,17 +1,23 @@
 """Detect -> crop -> pose serving pipeline (counterpart of
-pose6d_tpu/infer/pipeline.py), rgbd variant with one pose per frame.
+pose6d_tpu/infer/pipeline.py), all four PoseNet variants, one pose per
+frame.
 
 uint8 frames /255 in compute_dtype -> YOLOv8 at native resolution ->
 top-1 decode -> square crop at 1.2x the box -> crop+resize as two matmuls
-(RGB and depth in compute_dtype) -> ImageNet and depth normalization ->
-PoseNet (float towers, or BN-folded serving towers after fold_backbones,
-whose stem and layer1 may run as CUDA kernels) -> X/Y re-derived from the
-predicted Z, the box centre and the original intrinsics.
+-> ImageNet normalization -> PoseNet (float towers, or BN-folded serving
+towers after fold_backbones, whose stem, layer1 and stages may run as CUDA
+kernels). Per variant, as in the reference's deployment scripts:
+  - rgb, rgbd: X/Y re-derived from the predicted Z, the box centre and the
+    original intrinsics (the JAX package's geometric_correction, always on);
+  - rgb_geometric: the network takes the original-frame centre and K;
+  - rgbd: the depth map is cropped in compute_dtype and normalized;
+  - rgbd_geometric: the depth map is cropped in f32 (its depth is metric)
+    and the network takes the crop-frame centre, clipped to the crop, and
+    the crop's intrinsics.
 
 Not ported yet: the letterbox branch (frame sides not divisible by the
 detector's coarsest stride, raises), more than one pose per frame with
-general NMS, the crop window, the int8 mode and the other three variants
-(raise); see ROADMAP.md.
+general NMS, the crop window and the int8 mode; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,24 +29,24 @@ import torch
 
 from .. import DEFAULT_DEVICE
 from ..data.crop import DEPTH_INVALID_M, DEPTH_MAX_M, DEPTH_MIN_M
-from ..geometry.pinhole import pinhole_xy_from_z
-from ..models.posenet import PoseNet, PoseNetConfig
+from ..geometry.pinhole import adjust_intrinsics_for_crop, pinhole_xy_from_z
+from ..models.posenet import VARIANTS, PoseNet, PoseNetConfig
 from ..models.posenet_serving import serving_forward
 from ..models.yolo.decode import decode_topk_nms
 from ..models.yolo.model import YoloConfig, YoloV8
 from ..ops.augment import eval_preprocess
 from ..ops.crop_resize import crop_params_from_bbox, crop_resize_matmul
-from ..ops.fused_block import pack_layer1_weights, pack_stem_weights
+from ..ops.fused_block import pack_layer1_weights, pack_stage_weights, pack_stem_weights
 from ..ops.quant import fold_bn_resnet
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    variant: str = "rgbd"
+    variant: str = "rgbd"  # rgb | rgb_geometric | rgbd | rgbd_geometric
     img_size: int = 224
     conf_thresh: float = 0.25
     # towers, crops and frames; the rgbd net sees only the normalized depth,
-    # so the depth map is cropped in this dtype too
+    # so its depth map is cropped in this dtype too (rgbd_geometric: f32)
     compute_dtype: torch.dtype = torch.bfloat16
 
 
@@ -54,12 +60,13 @@ class PosePipeline:
                  yolo_state: dict, pose_state: dict,
                  pose_cfg: PoseNetConfig | None = None,
                  device: str | torch.device = DEFAULT_DEVICE):
-        if pipe_cfg.variant != "rgbd":
-            raise NotImplementedError(f"PosePipeline: variant {pipe_cfg.variant!r} is not ported")
+        if pipe_cfg.variant not in VARIANTS:
+            raise ValueError(f"PosePipeline: unknown variant {pipe_cfg.variant!r}")
         self.cfg = pipe_cfg
         self.device = torch.device(device)
         self.yolo_cfg = yolo_cfg
-        self.pose_cfg = pose_cfg or PoseNetConfig(variant=pipe_cfg.variant)
+        self.pose_cfg = pose_cfg or PoseNetConfig(variant=pipe_cfg.variant,
+                                                  img_size=pipe_cfg.img_size)
         self.yolo = self._load(YoloV8(yolo_cfg), yolo_state)
         self.posenet = self._load(PoseNet(self.pose_cfg), pose_state)
         self._folded: dict = {}
@@ -68,17 +75,19 @@ class PosePipeline:
         module.load_state_dict(state, strict=True)
         return module.to(self.device, memory_format=torch.channels_last).eval()
 
-    def fold_backbones(self, pallas_layer1: bool = False, pallas_stem: bool = False):
+    def fold_backbones(self, pallas_layer1: bool = False, pallas_stem: bool = False,
+                       pallas_stages: tuple = ()):
         """Enable the folded serving mode: BN folds into every tower conv,
         the towers run in compute_dtype with f32 accumulation, and with
-        pallas_stem / pallas_layer1 (img_size 224 only) the stem and layer1
-        run as the fused CUDA kernels (ops/fused_block.py). Returns self."""
-        if (pallas_layer1 or pallas_stem) and self.cfg.img_size != 224:
-            raise ValueError(f"pallas_layer1/pallas_stem require img_size 224 "
-                             f"(56x56 layer1 maps), got {self.cfg.img_size}")
+        pallas_stem / pallas_layer1 / pallas_stages (stage numbers 1-4;
+        img_size 224 only) the stem, layer1 and those stages run as the
+        fused CUDA kernels (ops/fused_block.py). Returns self."""
+        if (pallas_layer1 or pallas_stem or pallas_stages) and self.cfg.img_size != 224:
+            raise ValueError(f"pallas_layer1/pallas_stem/pallas_stages require img_size "
+                             f"224 (56x56 layer1 maps), got {self.cfg.img_size}")
         cd = self.cfg.compute_dtype
         folded = {}
-        for name in ("rgb_backbone", "depth_backbone"):
+        for name in self.posenet.towers:
             tree = fold_bn_resnet(getattr(self.posenet, name))
             entry = {"tree": {k: {"w": v["w"].to(cd).contiguous(memory_format=torch.channels_last),
                                   "b": v["b"].to(cd)} for k, v in tree.items()}}
@@ -86,6 +95,9 @@ class PosePipeline:
                 entry["pallas_l1"] = pack_layer1_weights(tree, cd)
             if pallas_stem:
                 entry["pallas_stem"] = pack_stem_weights(tree, cd)
+            if pallas_stages:
+                entry["pallas_stages"] = {n: pack_stage_weights(tree, n, cd)
+                                          for n in pallas_stages}
             folded[name] = entry
         self._folded = folded
         return self
@@ -107,10 +119,13 @@ class PosePipeline:
         x1, y1, x2, y2 = dets["boxes"].unbind(-1)
         return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1), dets
 
-    def crop_stage(self, frames: torch.Tensor, depth_raw_full: torch.Tensor) -> dict:
+    def crop_stage(self, frames: torch.Tensor, camera_K: torch.Tensor,
+                   depth_raw_full: torch.Tensor | None = None) -> dict:
         """Everything before the pose net: detection, crop parameters and
-        the normalized tower inputs {"rgb" [B,S,S,3], "depth" [B,S,S,1]} in
-        compute_dtype."""
+        {"inputs": the PoseNet keyword arguments of the variant ("rgb"
+        [B,S,S,3] in compute_dtype, and "depth", "depth_raw", "bbox_center",
+        "camera_matrix" as the variant takes them), "bbox_xywh", "center"
+        (the box centre in the frame), "dets"}."""
         cfg = self.cfg
         S = cfg.img_size
         cd = cfg.compute_dtype
@@ -118,27 +133,46 @@ class PosePipeline:
         bbox_xywh, dets = self._detect_best(frames_norm)
         bbox = bbox_xywh[:, 0]
         cx1, cy1, csize = crop_params_from_bbox(bbox)
-        crops = crop_resize_matmul(frames_norm, cx1, cy1, csize, S, compute_dtype=cd)
-        crops = eval_preprocess(crops).to(cd)
-        depth_crop = crop_resize_matmul(depth_raw_full[..., None].to(cd), cx1, cy1, csize, S,
-                                        compute_dtype=cd)[..., 0]
-        dn = torch.clamp((depth_crop - DEPTH_MIN_M) / (DEPTH_MAX_M - DEPTH_MIN_M), 0.0, 1.0)
-        dn = torch.where(depth_crop < DEPTH_INVALID_M, torch.zeros_like(dn), dn)
+
+        def crop(src, dtype):
+            return crop_resize_matmul(src.to(dtype), cx1, cy1, csize, S, compute_dtype=dtype)
+
+        crops = eval_preprocess(crop(frames_norm, cd)).to(cd)
         center = torch.stack([bbox[:, 0] + bbox[:, 2] / 2.0, bbox[:, 1] + bbox[:, 3] / 2.0], -1)
-        return {"rgb": crops, "depth": dn[..., None].to(cd), "bbox_xywh": bbox,
-                "center": center, "dets": dets}
+        inputs = {"rgb": crops}
+        if cfg.variant == "rgb_geometric":
+            inputs.update(bbox_center=center, camera_matrix=camera_K)
+        elif cfg.variant == "rgbd":
+            depth_crop = crop(depth_raw_full[..., None], cd)[..., 0]
+            dn = torch.clamp((depth_crop - DEPTH_MIN_M) / (DEPTH_MAX_M - DEPTH_MIN_M), 0.0, 1.0)
+            dn = torch.where(depth_crop < DEPTH_INVALID_M, torch.zeros_like(dn), dn)
+            inputs["depth"] = dn[..., None].to(cd)
+        elif cfg.variant == "rgbd_geometric":
+            # crop-frame bookkeeping; the device crop never materializes
+            # padding, so the pad terms are zero and x1 may be negative
+            scale = S / torch.clamp_min(csize, 1.0)
+            zeros = torch.zeros_like(cx1)
+            center_crop = torch.stack([((center[:, 0] - cx1) * scale).clamp(0, S - 1),
+                                       ((center[:, 1] - cy1) * scale).clamp(0, S - 1)], -1)
+            inputs.update(
+                depth_raw=crop(depth_raw_full[..., None], torch.float32)[..., 0],
+                bbox_center=center_crop,
+                camera_matrix=adjust_intrinsics_for_crop(camera_K, cx1, cy1, zeros, zeros, scale))
+        return {"inputs": inputs, "bbox_xywh": bbox, "center": center, "dets": dets}
 
     def _run(self, frames, camera_K, depth_raw_full) -> dict:
         cfg = self.cfg
-        st = self.crop_stage(frames, depth_raw_full)
+        st = self.crop_stage(frames, camera_K, depth_raw_full)
         if self._folded:
-            rot, trans = serving_forward(self.posenet, self.pose_cfg, st["rgb"], st["depth"],
+            rot, trans = serving_forward(self.posenet, self.pose_cfg, **st["inputs"],
                                          compute_dtype=cfg.compute_dtype, folded=self._folded)
         else:
-            rot, trans = self.posenet(st["rgb"], st["depth"])
-        # deployment-time X/Y re-derivation from the predicted Z, the box
-        # centre and the original intrinsics
-        trans = pinhole_xy_from_z(trans.float()[:, 2], st["center"], camera_K)
+            rot, trans = self.posenet(**st["inputs"])
+        trans = trans.float()
+        if cfg.variant in ("rgb", "rgbd"):
+            # deployment-time X/Y re-derivation from the predicted Z, the box
+            # centre and the original intrinsics
+            trans = pinhole_xy_from_z(trans[:, 2], st["center"], camera_K)
         dets = st["dets"]
         return {
             "rotation": rot.float(),
@@ -157,12 +191,16 @@ class PosePipeline:
         return t.to(self.device, dtype=dtype)
 
     @torch.inference_mode()
-    def __call__(self, frames, camera_K, depth_raw_full) -> dict:
+    def __call__(self, frames, camera_K, depth_raw_full=None) -> dict:
         """frames [B, H, W, 3] uint8; camera_K [B, 3, 3] or [3, 3];
-        depth_raw_full [B, H, W] metres. Numpy arrays or tensors; returns a
-        dict of tensors on the pipeline's device."""
+        depth_raw_full [B, H, W] metres (rgbd variants). Numpy arrays or
+        tensors; returns a dict of tensors on the pipeline's device."""
         frames = self._tensor(frames)
         camera_K = self._tensor(camera_K, torch.float32)
         if camera_K.ndim == 2:
             camera_K = camera_K.expand(frames.shape[0], 3, 3)
-        return self._run(frames, camera_K, self._tensor(depth_raw_full, torch.float32))
+        if self.cfg.variant in ("rgbd", "rgbd_geometric"):
+            if depth_raw_full is None:
+                raise ValueError(f"variant {self.cfg.variant!r} needs depth_raw_full")
+            depth_raw_full = self._tensor(depth_raw_full, torch.float32)
+        return self._run(frames, camera_K, depth_raw_full)

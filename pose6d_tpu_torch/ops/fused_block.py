@@ -1,17 +1,21 @@
-"""Fused ResNet50 stem and layer1 for the folded serving towers
-(counterpart of pose6d_tpu/ops/pallas_block.py fused_stem / fused_layer1).
+"""Fused ResNet50 stem and bottleneck stages for the folded serving towers
+(counterpart of pose6d_tpu/ops/pallas_block.py fused_stem / fused_layer1 /
+fused_stage).
 
-Each wrapper launches its hand-written CUDA kernel (csrc/stem.cu,
-csrc/layer1.cu) for a CUDA tensor and runs its plain PyTorch version,
-`reference_stem` / `reference_layer1`, for a CPU tensor; any other device
-raises. Both kernels and both plain versions take the same packed weights
-and keep the TPU kernels' numeric contract: f32 accumulation, bias and
-residual added in f32, activations rounded to the compute type (the dtype
-of x) at every conv output that the TPU kernel rounded.
+Each wrapper launches its hand-written CUDA kernel (csrc/stem.cu, or
+csrc/stage.cu for fused_stage and for fused_layer1, which is fused_stage at
+stage 1 behind its own launch count) for a CUDA tensor and runs its plain
+PyTorch version, `reference_stem` / `reference_layer1` /
+`reference_stage`, for a CPU tensor; any other device raises. Kernels and plain versions take the
+same packed weights and keep the TPU kernels' numeric contract: f32
+accumulation, bias and residual added in f32, activations rounded to the
+compute type (the dtype of x) at every conv output that the TPU kernel
+rounded.
 
 Layouts are NHWC like the JAX package: stem [B,224,224,C] -> [B,56,56,64]
-(C = 3 for rgb towers, 1 for the rgbd depth tower); layer1 [B,56,56,64] ->
-[B,56,56,256].
+(C = 3 for rgb towers, 1 for the rgbd depth tower); stage n [B,h,w,cin] ->
+[B,h/s,w/s,cout] per STAGE_CFGS (layer1 is stage 1, [B,56,56,64] ->
+[B,56,56,256]).
 """
 
 from __future__ import annotations
@@ -24,8 +28,16 @@ import torch.nn.functional as F
 from .. import _build
 
 H = W = 56
-CIN, CMID, COUT = 64, 64, 256
+CIN = 64
 STEM_IN = 224
+
+# (name, n_blocks, stride, cin, cmid, cout, h_in, w_in) at 224x224 input
+STAGE_CFGS = {
+    1: ("layer1", 3, 1, 64, 64, 256, 56, 56),
+    2: ("layer2", 4, 2, 256, 128, 512, 56, 56),
+    3: ("layer3", 6, 2, 512, 256, 1024, 28, 28),
+    4: ("layer4", 3, 2, 1024, 512, 2048, 14, 14),
+}
 
 
 def pack_stem_weights(folded: dict, dtype=torch.bfloat16):
@@ -36,31 +48,51 @@ def pack_stem_weights(folded: dict, dtype=torch.bfloat16):
     return w, folded["conv1"]["b"].float().contiguous()
 
 
-def pack_layer1_weights(folded: dict, dtype=torch.bfloat16):
-    """The layer1 entries of a folded tree as the kernel's 20-tuple, in the
-    JAX package's order: per block w1 [ci,co], b1, w2 [576,64] in (ky, kx,
-    cin) row order, b2, w3 [64,256], b3, and for block 0 wd [64,256], bd.
-    Weights are in dtype, biases f32 [co]."""
+def pack_stage_weights(folded: dict, stage: int, dtype=torch.bfloat16):
+    """One stage's entries of a folded tree as the kernel's tuple of
+    6 * n_blocks + 2 tensors, in the JAX package's order: per block w1
+    [ci,cm], b1, w2 [9*cm,cm] in (ky, kx, cin) row order, b2, w3 [cm,co], b3,
+    and for block 0 also wd [ci,co], bd. Weights are in dtype, biases f32
+    [co]."""
+    name, n_blocks = STAGE_CFGS[stage][:2]
 
-    def w11(name):
-        w = folded[name]["w"]  # [co, ci, 1, 1]
+    def w11(n):
+        w = folded[n]["w"]  # [co, ci, 1, 1]
         return w[:, :, 0, 0].t().contiguous().to(dtype)
 
-    def w33(name):
-        w = folded[name]["w"]  # [co, ci, 3, 3] -> [(ky, kx, ci), co]
+    def w33(n):
+        w = folded[n]["w"]  # [co, ci, 3, 3] -> [(ky, kx, ci), co]
         return w.permute(2, 3, 1, 0).reshape(9 * w.shape[1], w.shape[0]).contiguous().to(dtype)
 
-    def b(name):
-        return folded[name]["b"].float().contiguous()
+    def b(n):
+        return folded[n]["b"].float().contiguous()
 
     args = []
-    for j in range(3):
-        blk = f"layer1_{j}"
+    for j in range(n_blocks):
+        blk = f"{name}_{j}"
         args += [w11(f"{blk}/conv1"), b(f"{blk}/conv1"), w33(f"{blk}/conv2"),
                  b(f"{blk}/conv2"), w11(f"{blk}/conv3"), b(f"{blk}/conv3")]
         if j == 0:
             args += [w11(f"{blk}/downsample"), b(f"{blk}/downsample")]
     return tuple(args)
+
+
+def pack_layer1_weights(folded: dict, dtype=torch.bfloat16):
+    """The layer1 entries as the kernel's 20-tuple: pack_stage_weights of
+    stage 1."""
+    return pack_stage_weights(folded, 1, dtype)
+
+
+def _stage_shapes(stage: int) -> list:
+    """The shapes of pack_stage_weights(., stage), in its order."""
+    _, n_blocks, _, cin, cmid, cout, _, _ = STAGE_CFGS[stage]
+    shapes = []
+    for j in range(n_blocks):
+        ci = cin if j == 0 else cout
+        shapes += [(ci, cmid), (cmid,), (9 * cmid, cmid), (cmid,), (cmid, cout), (cout,)]
+        if j == 0:
+            shapes += [(cin, cout), (cout,)]
+    return shapes
 
 
 # ------------------------------------------------------------ plain versions
@@ -76,31 +108,42 @@ def reference_stem(x: torch.Tensor, weights) -> torch.Tensor:
     return F.max_pool2d(y, 3, 2, padding=1).permute(0, 2, 3, 1).contiguous()
 
 
-def reference_layer1(x: torch.Tensor, weights) -> torch.Tensor:
-    """The three folded bottlenecks in f32 with the kernel's roundings:
+def reference_stage(x: torch.Tensor, weights, stage: int) -> torch.Tensor:
+    """One stage's folded bottlenecks in f32 with the kernel's roundings:
     conv1/conv2 outputs and each block output round to x.dtype; block 0's
-    projection shortcut stays f32 until the block's sum."""
+    projection shortcut stays f32 until the block's sum. Block 0's 3x3 conv
+    pads 1 on every side at its stride; its 1x1 shortcut reads the even rows
+    and columns when the stride is 2."""
+    _, n_blocks, stride, *_ = STAGE_CFGS[stage]
     dt = x.dtype
-    B = x.shape[0]
 
-    def mm(a, w, b):  # 1x1 conv on the [M, ci] rows, f32
+    def mm(a, w, b):  # 1x1 conv on the NHWC map, f32
         return a.float() @ w.float() + b
 
-    def conv3x3(a, w, b):  # a [M, 64] rows of the [B,56,56,64] map
-        a = a.reshape(B, H, W, CMID).permute(0, 3, 1, 2).float()
-        w = w.float().reshape(3, 3, CMID, CMID).permute(3, 2, 0, 1)
-        y = F.conv2d(a, w, b, padding=1)
-        return y.permute(0, 2, 3, 1).reshape(-1, CMID)
+    def conv3x3(a, w, b, s):
+        cm = a.shape[-1]
+        w = w.float().reshape(3, 3, cm, -1).permute(3, 2, 0, 1)
+        y = F.conv2d(a.permute(0, 3, 1, 2).float(), w, b, stride=s, padding=1)
+        return y.permute(0, 2, 3, 1)
 
-    h = x.reshape(-1, CIN)
+    h = x
     it = iter(weights)
-    for j in range(3):
+    for j in range(n_blocks):
         w1, b1, w2, b2, w3, b3 = (next(it) for _ in range(6))
-        shortcut = mm(h, *(next(it) for _ in range(2))) if j == 0 else h.float()
+        s = stride if j == 0 else 1
+        if j == 0:
+            shortcut = mm(h[:, ::s, ::s], *(next(it) for _ in range(2)))
+        else:
+            shortcut = h.float()
         t = F.relu(mm(h, w1, b1)).to(dt)
-        t = F.relu(conv3x3(t, w2, b2)).to(dt)
+        t = F.relu(conv3x3(t, w2, b2, s)).to(dt)
         h = F.relu(mm(t, w3, b3) + shortcut).to(dt)
-    return h.reshape(B, H, W, COUT)
+    return h.contiguous()
+
+
+def reference_layer1(x: torch.Tensor, weights) -> torch.Tensor:
+    """reference_stage of stage 1."""
+    return reference_stage(x, weights, 1)
 
 
 # ------------------------------------------------------------------ kernels
@@ -144,13 +187,15 @@ def _launch_stem(x, w, b, out, stream: int) -> None:
     _build.check(code, "fused_stem")
 
 
-def _launch_layer1(x, weights, scratch, out, stream: int) -> None:
+def _launch_stage(x, weights, stage: int, scratch, out, stream: int) -> None:
+    _, n_blocks, stride, cin, cmid, cout, h, w = STAGE_CFGS[stage]
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
     t1, t2, ya, yb = scratch
-    code = _build.lib().pose6d_layer1_forward(
-        x.data_ptr(), ptrs, t1.data_ptr(), t2.data_ptr(), ya.data_ptr(),
-        yb.data_ptr(), out.data_ptr(), x.shape[0], _dtype_flag(x), stream)
-    _build.check(code, "fused_layer1")
+    code = _build.lib().pose6d_stage_forward(
+        x.data_ptr(), ptrs, len(weights), n_blocks, t1.data_ptr(), t2.data_ptr(),
+        ya.data_ptr(), yb.data_ptr(), out.data_ptr(), x.shape[0], h, w, stride,
+        cin, cmid, cout, _dtype_flag(x), stream)
+    _build.check(code, f"fused_stage(stage={stage})")
 
 
 def fused_stem(x: torch.Tensor, weights) -> torch.Tensor:
@@ -173,30 +218,62 @@ def fused_stem(x: torch.Tensor, weights) -> torch.Tensor:
     return out
 
 
-_LAYER1_SHAPES = [(CIN, CMID), (CMID,), (9 * CMID, CMID), (CMID,), (CMID, COUT), (COUT,),
-                  (CIN, COUT), (COUT,)] + 2 * [(COUT, CMID), (CMID,), (9 * CMID, CMID),
-                                                (CMID,), (CMID, COUT), (COUT,)]
+def _check_stage(fn: str, x: torch.Tensor, weights, stage: int) -> None:
+    """What the stage kernels take: x [B,h,w,cin] of STAGE_CFGS[stage] in f32
+    or bf16 and the pack_stage_weights tuple in x's dtype (biases f32)."""
+    if stage not in STAGE_CFGS:
+        raise ValueError(f"{fn}: stage must be one of {sorted(STAGE_CFGS)}, got {stage}")
+    _dtype_flag(x)
+    _, _, _, cin, _, _, h, w = STAGE_CFGS[stage]
+    if x.ndim != 4 or tuple(x.shape[1:]) != (h, w, cin):
+        raise ValueError(f"{fn}: x must be [B,{h},{w},{cin}], got {tuple(x.shape)}")
+    shapes = _stage_shapes(stage)
+    if len(weights) != len(shapes):
+        raise ValueError(f"{fn}: expected {len(shapes)} weights, got {len(weights)}")
+    for i, (t, shape) in enumerate(zip(weights, shapes)):
+        _check(f"weights[{i}]", t, torch.float32 if len(shape) == 1 else x.dtype, shape)
+
+
+def _stage_buffers(x: torch.Tensor, stage: int):
+    """The kernel's scratch (t1 [B*h*w, cmid] for block 0's conv1 at the
+    input resolution, t2 [B*ho*wo, cmid], two [B*ho*wo, cout] ping-pong
+    maps) and its output [B,ho,wo,cout]."""
+    _, _, stride, _, cmid, cout, h, w = STAGE_CFGS[stage]
+    B, ho, wo = x.shape[0], h // stride, w // stride
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    scratch = (empty(B * h * w, cmid), empty(B * ho * wo, cmid),
+               empty(B * ho * wo, cout), empty(B * ho * wo, cout))
+    return scratch, empty(B, ho, wo, cout)
 
 
 def fused_layer1(x: torch.Tensor, weights) -> torch.Tensor:
     """ResNet50 layer1 (three folded bottlenecks). x [B,56,56,64] in f32 or
     bf16; weights from pack_layer1_weights in x's dtype. Returns
-    [B,56,56,256] in x.dtype. On the card this is one logical launch of a
-    short sequence of kernels (csrc/layer1.cu)."""
-    _dtype_flag(x)
-    if x.ndim != 4 or tuple(x.shape[1:]) != (H, W, CIN):
-        raise ValueError(f"fused_layer1: x must be [B,56,56,64], got {tuple(x.shape)}")
-    if len(weights) != len(_LAYER1_SHAPES):
-        raise ValueError(f"fused_layer1: expected {len(_LAYER1_SHAPES)} weights")
-    for i, (t, shape) in enumerate(zip(weights, _LAYER1_SHAPES)):
-        _check(f"weights[{i}]", t, torch.float32 if len(shape) == 1 else x.dtype, shape)
+    [B,56,56,256] in x.dtype. The stage kernel at stage 1 (csrc/stage.cu),
+    counted as fused_layer1: the rgbd path's name for its layer1."""
+    _check_stage("fused_layer1", x, weights, 1)
     if x.device.type == "cpu":
         return reference_layer1(x, weights)
     _check_on_card(x, weights)
-    M = x.shape[0] * H * W
-    scratch = tuple(torch.empty((M, c), dtype=x.dtype, device=x.device)
-                    for c in (CMID, CMID, COUT, COUT))
-    out = torch.empty((x.shape[0], H, W, COUT), dtype=x.dtype, device=x.device)
-    _launch_layer1(x, weights, scratch, out, _stream(x.device))
+    scratch, out = _stage_buffers(x, 1)
+    _launch_stage(x, weights, 1, scratch, out, _stream(x.device))
     _build.launch_counts["fused_layer1"] += 1
+    return out
+
+
+def fused_stage(x: torch.Tensor, weights, stage: int) -> torch.Tensor:
+    """ResNet50 stage `stage` (1-4, STAGE_CFGS) as one call. x [B,h,w,cin]
+    in f32 or bf16; weights from pack_stage_weights(., stage) in x's dtype.
+    Returns [B,h/s,w/s,cout] in x.dtype. On the card this is one logical
+    launch of three GEMM kernels per block (csrc/stage.cu)."""
+    _check_stage("fused_stage", x, weights, stage)
+    if x.device.type == "cpu":
+        return reference_stage(x, weights, stage)
+    _check_on_card(x, weights)
+    scratch, out = _stage_buffers(x, stage)
+    _launch_stage(x, weights, stage, scratch, out, _stream(x.device))
+    _build.launch_counts[f"fused_stage_s{stage}"] += 1
     return out

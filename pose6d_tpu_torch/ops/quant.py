@@ -4,9 +4,9 @@ folding half of pose6d_tpu/ops/quant.py; the int8 mode is a later slice).
 `fold_bn_resnet` turns every conv+BN pair of a ResNet50 tower into one conv
 with a bias (an inference-only identity). `folded_resnet50_forward` runs
 the tower over that tree with activations in compute_dtype and, when given
-packed weights, its stem and layer1 through the CUDA kernels of
-ops/fused_block.py; stages 2-4 run on torch's convolutions, as the JAX
-package leaves them to XLA.
+packed weights, its stem, layer1 and any of its four stages through the
+CUDA kernels of ops/fused_block.py; the rest runs on torch's convolutions,
+as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.resnet import STAGE_SIZES, ResNet50
-from .fused_block import fused_layer1, fused_stem
+from .fused_block import fused_layer1, fused_stage, fused_stem
 
 
 def _fold_one(conv_w: torch.Tensor, bn, eps: float):
@@ -53,7 +53,7 @@ def nn_max_pool(x: torch.Tensor) -> torch.Tensor:
 
 def folded_resnet50_forward(folded: Dict[str, dict], x: torch.Tensor,
                             compute_dtype=torch.float32, pallas_l1=None,
-                            pallas_stem=None) -> torch.Tensor:
+                            pallas_stem=None, pallas_stages=None) -> torch.Tensor:
     """Tower features [B, 2048] f32 from NHWC x over a folded tree.
 
     compute_dtype f32 is numerically the float tower in eval mode. bf16 is
@@ -61,10 +61,14 @@ def folded_resnet50_forward(folded: Dict[str, dict], x: torch.Tensor,
     in bf16 with f32 accumulation inside each conv (the tree's weights and
     biases must already be in compute_dtype; PosePipeline.fold_backbones
     prepares them). `pallas_stem` (pack_stem_weights) replaces conv1 + ReLU
-    + maxpool with the fused stem kernel and `pallas_l1`
+    + maxpool with the fused stem kernel, `pallas_l1`
     (pack_layer1_weights) the three layer1 blocks with the fused layer1
-    kernel; both need 224x224 inputs."""
+    kernel, and `pallas_stages` ({stage: pack_stage_weights tuple}) whole
+    stages with the parametric stage kernel; all need 224x224 inputs. A
+    stage named in pallas_stages runs fused_stage, so pallas_l1 applies only
+    when 1 is not among them (the JAX package's precedence)."""
     cd = compute_dtype
+    stages = pallas_stages or {}
 
     def conv(name, h, stride=1, padding=0):
         e = folded[name]
@@ -81,6 +85,9 @@ def folded_resnet50_forward(folded: Dict[str, dict], x: torch.Tensor,
     else:
         h = nn_max_pool(F.relu(conv("conv1", nchw(x), 2, 3)))
     for i, n_blocks in enumerate(STAGE_SIZES):
+        if i + 1 in stages:
+            h = nchw(fused_stage(nhwc(h), stages[i + 1], i + 1))
+            continue
         if i == 0 and pallas_l1 is not None:
             h = nchw(fused_layer1(nhwc(h), pallas_l1))
             continue

@@ -3,6 +3,8 @@ without one). Run on a machine with a CUDA card and nvcc:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
+Kernels: the fused stem, layer1, the parametric stage (stages 1-4, and
+stage 1 bit for bit equal to layer1) and the ADD-S nearest-point search.
 Tolerances: f32 kernel vs plain max error <= 1e-4 * max(1, |plain|max)
 (different f32 summation order); bf16 kernel vs the f32 plain version
 within the bf16 envelope (mean error < 0.02 std, max < 0.25 std);
@@ -73,6 +75,42 @@ def test_layer1_kernel(cuda, dtype):
     torch.cuda.synchronize()
     want = fb.reference_layer1(x.float().to(cuda), tuple(t.float().to(cuda) for t in w))
     _check(got, want, dtype)
+
+
+def _stage_weights(stage, dtype, seed=0):
+    name, n_blocks, _, cin, cmid, cout, _, _ = fb.STAGE_CFGS[stage]
+    specs = {f"{name}_0/downsample": (1, cin, cout)}
+    for j in range(n_blocks):
+        specs.update({f"{name}_{j}/conv1": (1, cin if j == 0 else cout, cmid),
+                      f"{name}_{j}/conv2": (3, cmid, cmid), f"{name}_{j}/conv3": (1, cmid, cout)})
+    return fb.pack_stage_weights(_folded(specs, seed), stage, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage,batch", [(1, 2), (2, 2), (3, 2), (4, 2), (2, 1), (4, 1)])
+def test_stage_kernel(cuda, stage, batch, dtype):
+    """Every stage, including M = B*ho*wo not a multiple of the 64-row tile
+    (stage 2 at B=1: 784 rows; stage 4: 49 rows per image)."""
+    _, _, _, cin, _, _, h, w = fb.STAGE_CFGS[stage]
+    wts = _stage_weights(stage, dtype)
+    x = torch.randn(batch, h, w, cin, generator=torch.Generator().manual_seed(stage)).to(dtype)
+    key = f"fused_stage_s{stage}"
+    before = _build.launch_counts[key]
+    got = fb.fused_stage(x.to(cuda), _to(wts, cuda), stage)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[key] == before + 1
+    want = fb.reference_stage(x.float().to(cuda), tuple(t.float().to(cuda) for t in wts), stage)
+    _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage1_equals_layer1_bit_for_bit(cuda, dtype):
+    wts = _to(_stage_weights(1, dtype, seed=3), cuda)
+    x = torch.randn(2, 56, 56, 64, generator=torch.Generator().manual_seed(4)).to(dtype).to(cuda)
+    a = fb.fused_stage(x, wts, 1)
+    b = fb.fused_layer1(x, wts)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("P", [500, 129, 1])

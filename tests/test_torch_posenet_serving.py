@@ -7,7 +7,9 @@ against PoseNet.apply and the port's folded f32 serving_forward against
 the JAX folded f32 serving_forward, atol 1e-4 on rotation and translation.
 At img_size 224 (B=1) both serving forwards route their towers through the
 stem and layer1 hooks (the port's plain versions on the CPU, the Pallas
-kernels in interpret mode in JAX), atol 1e-4."""
+kernels in interpret mode in JAX), atol 1e-4. Seeded weights load for all
+four variants (the others are held against JAX in
+tests/test_torch_posenet_variants.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,12 +94,20 @@ def test_fused_prefix_hooks_match_jax_at_224():
     _close(got, want)
 
 
-def test_seeded_weights_load_and_other_variants_raise():
-    cfg = PoseNetConfig(variant="rgbd")
+@pytest.mark.parametrize("variant", ["rgb", "rgb_geometric", "rgbd", "rgbd_geometric"])
+def test_seeded_weights_load_and_other_variants_raise(variant):
+    """Seeded weights load strictly for every variant; what is not ported
+    (the space-to-depth stem) raises."""
+    cfg = PoseNetConfig(variant=variant)
     sd = init_posenet_weights(cfg, 0)
     PoseNet(cfg).load_state_dict(sd, strict=True)
+    tower = "rgb_backbone" if variant == "rgbd" else "backbone"
     # every BatchNorm is randomised, residual-branch ends included
-    assert float(sd["rgb_backbone.layer1_0.bn3.weight"].min()) > 0
-    assert float(sd["rgb_backbone.layer1_0.bn3.running_var"].std()) > 0
+    assert float(sd[f"{tower}.layer1_0.bn3.weight"].min()) > 0
+    assert float(sd[f"{tower}.layer1_0.bn3.running_var"].std()) > 0
+    z_bias = {"rgb_geometric": ("z_out.bias", 0), "rgbd_geometric": None}.get(
+        variant, ("trans_out.bias", 2))
+    if z_bias is not None:  # the learned z starts at 0.5 m
+        assert float(sd[z_bias[0]][z_bias[1]]) == 0.5
     with pytest.raises(NotImplementedError):
-        PoseNet(PoseNetConfig(variant="rgb"))
+        PoseNet(PoseNetConfig(variant=variant, stem_s2d=True))
