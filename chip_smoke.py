@@ -18,7 +18,9 @@ Phases, each printed on its own line with its seconds:
      the card's bound for the work. The stage kernel runs stages 1-4 on the
      rgbd_geometric tower's own activations, and fused_layer1 (the same
      kernel at stage 1 behind the rgbd path's own launch count) must equal
-     fused_stage at stage 1 bit for bit;
+     fused_stage at stage 1 bit for bit; the frame gather moves B = 32 rows
+     of the train phase's resident store (256 frames at 640x480, RGB and
+     depth words) bit for bit equal to its plain version;
   4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
      frames, two ResNet50 towers at 224, attention dim 2048) with seeded
      weights, folded bf16 towers with the stem and layer1 kernels, over 3
@@ -34,8 +36,20 @@ Phases, each printed on its own line with its seconds:
      envelope;
   6. add: ADD / ADD-S of each slice's poses against seeded ground truth
      through the nearest-point kernel, against the plain version;
-  7. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice and add runs.
+  7. train rgbd: the device-resident train step at full width (two
+     ResNet50 towers at 224, attention dim 2048, LayerNorm/GELU heads with
+     their dropout; TrainConfig's defaults: batch 32, f32, lr 1e-4) from a
+     seeded from-scratch init, on seeded uint8 frames and uint16 depth
+     (256 at 640x480, labels seeded too) packed into the card's
+     DeviceFrameStore: one make_train_epoch call of 4 steps (after a
+     1-step warm-up call) under torch.cuda.set_sync_debug_mode("error"),
+     then one make_eval_step batch. Checks finite losses, every parameter
+     and BN running statistic moved, 8 gather launches in the epoch (RGB
+     and depth per step) and 2 addmin launches in the eval step (learned
+     and deployed translation); prints the step time (CUDA events over the
+     4 steps) as a smoke reading;
+  8. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice, add and train runs.
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
 the script exits non-zero without it. f32 comparisons run with TF32 off
@@ -45,6 +59,7 @@ for both cuDNN convolutions and matmuls.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -69,6 +84,9 @@ F32_RTOL = 1e-4        # kernel vs plain in f32: max err <= F32_RTOL * max(1, |r
 BF16_MEAN_REL = 0.02   # bf16 kernel vs f32 plain: mean err < 0.02 * std(ref)
 BF16_MAX_REL = 0.25    # ... and max err < 0.25 * std(ref)
 STAGES_SERVED = (1, 2)  # rgbd_geometric folded serving: fused_stage for these
+TRAIN_FRAMES = 256     # the train phase's resident split (640x480 frames)
+TRAIN_STEPS = 4        # steps of the timed train epoch, at TrainConfig's batch 32
+HOLD_CYCLES = 4_000_000  # ~2 ms of spin at the H100's clock, ahead of each timed run
 FEAT_REL_L2 = 0.05     # folded bf16 vs float f32 tower features, relative L2
 POSE_ATOL = 0.01       # folded bf16 vs float f32 poses: quaternion components, metres
 ADDMIN_ATOL = 1e-6     # metres, kernel (difference form) vs plain (expansion)
@@ -94,12 +112,16 @@ def sync(device) -> None:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() over reps runs, each between CUDA events."""
+    """Median milliseconds of fn() over reps runs, each between CUDA events.
+    Each run starts behind a HOLD_CYCLES spin on the stream, so that the
+    host has enqueued fn's launches before the start event fires: the
+    events then time the card's work, not the wrapper's host overhead."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -219,7 +241,40 @@ def stage_rows(geo_pipe, rgb):
     return rows
 
 
-def phase_kernels(pipe, geo_pipe, tower_inputs, rng):
+def gather_row(store, rng):
+    """The frame gather on the train phase's resident words at batch 32:
+    RGB and depth rows bit-equal to the plain version (index_select on the
+    int32 view), then timed beside it, beside index_select alone (the
+    library call) and beside the bytes bound (each row read and written
+    once)."""
+    from pose6d_tpu_torch.ops import gather_frames as gf
+
+    dev = store.device
+    # int32 indices, as the train path's metadata holds them
+    idx = torch.from_numpy(rng.integers(0, len(store), 32, dtype=np.int32)).to(dev)
+    out = {}
+    for kind, words in (("rgb", store.rgb_frames), ("depth", store.depth_frames)):
+        got = gf.gather_rows_u32(words, idx)
+        want = gf._gather_rows_plain(words, idx)
+        check(torch.equal(got, want),
+              f"gather_rows_u32 ({kind} words) differs from its plain version")
+        err = float((got.long() - want.long()).abs().max().item())
+        sync(dev)
+        b_ms, b_by = bound_ms(2.0 * idx.numel() * words.shape[1] * 4, 0.0, torch.float32)
+        out[kind] = {"max_abs_err": err,
+                     "ms": cuda_ms(lambda: gf.gather_rows_u32(words, idx)),
+                     "plain_ms": cuda_ms(lambda: gf._gather_rows_plain(words, idx)),
+                     "library_ms": cuda_ms(lambda: words.index_select(0, idx)),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    row = {"name": "gather_rows_u32", "route": "cuda",
+           "source": "pose6d_tpu_torch/csrc/gather.cu",
+           "replaces": "pose6d_tpu/ops/gather_frames.py:60", **out["rgb"]}
+    row.update({f"depth_{k}": v for k, v in out["depth"].items() if k != "bound_by"})
+    row["max_abs_err"] = max(out["rgb"]["max_abs_err"], out["depth"]["max_abs_err"])
+    return row
+
+
+def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
     """Each kernel against its plain version at the serving shapes, then
     timed beside the plain version, a library computation and its bound."""
     import torch.nn.functional as F
@@ -302,9 +357,16 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, rng):
         "library_ms": cuda_ms(lambda: torch.cdist(pred, gt).amin(-1)),
         "f64_max_err": err_exact,
     })
+    rows.append(gather_row(store, rng))
     for r in rows:
-        extra = (f"bf16 mean/max err {r['bf16_mean_err']:.3g}/{r['bf16_max_err']:.3g}"
-                 if "bf16_mean_err" in r else f"f64 max err {r['f64_max_err']:.3g}")
+        if "bf16_mean_err" in r:
+            extra = f"bf16 mean/max err {r['bf16_mean_err']:.3g}/{r['bf16_max_err']:.3g}"
+        elif "f64_max_err" in r:
+            extra = f"f64 max err {r['f64_max_err']:.3g}"
+        else:
+            extra = (f"bit-equal; depth words ms {r['depth_ms']:.4f} plain_ms "
+                     f"{r['depth_plain_ms']:.4f} library_ms {r['depth_library_ms']:.4f} "
+                     f"bound_ms {r['depth_bound_ms']:.5f}")
         log(f"  {r['name']}: f32 max_abs_err {r['max_abs_err']:.3g}, {extra}  "
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
             f"library_ms {r['library_ms']:.4f}  bound_ms {r['bound_ms']:.5f} ({r['bound_by']})")
@@ -464,6 +526,205 @@ def phase_add(out, rng):
     return n
 
 
+def seeded_split(rng, device):
+    """The train phase's split on the card: TRAIN_FRAMES seeded uint8 RGB
+    frames and uint16 depth maps (mm, 5 % invalid) at 640x480 with seeded
+    boxes, rotations, translations, object ids and LineMOD intrinsics, in
+    the port's DeviceFrameStore (host-packed 32-bit words)."""
+    from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
+
+    n = TRAIN_FRAMES
+    rgb = rng.integers(0, 256, (n, FRAME_H, FRAME_W, 3), dtype=np.uint8)
+    depth = rng.integers(300, 1500, (n, FRAME_H, FRAME_W), dtype=np.uint16)
+    depth[rng.random(depth.shape) < 0.05] = 0
+    wh = rng.uniform(60, 200, (n, 2))
+    xy = rng.uniform(0, 1, (n, 2)) * (np.array([FRAME_W, FRAME_H]) - wh)
+    q = rng.normal(size=(n, 4))
+    x, y, z, w = (q / np.linalg.norm(q, axis=-1, keepdims=True)).T
+    rot = np.stack([np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+                    np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+                    np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1)],
+                   -2)
+    trans_mm = np.stack([rng.uniform(-100, 100, n), rng.uniform(-100, 100, n),
+                         rng.uniform(600, 1000, n)], -1)
+    return DeviceFrameStore(rgb, depth, np.concatenate([xy, wh], -1), rot, trans_mm,
+                            rng.integers(0, 13, n), np.repeat(LINEMOD_K[None], n, 0),
+                            img_size=224, flavor="rgbd", device=device)
+
+
+@contextlib.contextmanager
+def spy(module, name: str, calls: list):
+    """Record (args, kwargs, result) of every call of module.name while
+    the block runs; the call itself is unchanged."""
+    fn = getattr(module, name)
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def check_eval_addmin(kernel_calls, metric_calls, batch: int) -> float:
+    """The eval step's addmin launches at the train path's own shape
+    ([batch, N_POINTS, 3], pred from the trained network): each output
+    against the plain version and float64 cdist on the same inputs, then
+    each add_metrics result (learned and deployed translation) against
+    add_metrics on CPU copies of its inputs, which runs the plain version.
+    Tolerances as in phases 3 and 6, scaled where the values are large: the
+    point checks by the largest distance beyond 1 m, the mm means by 1e-5
+    of their value beyond 100 mm (an untrained network's predictions land
+    tens of centimetres off, and the card and the CPU sum 32 x 500 f32
+    terms in different orders). The accuracies and counts are equal.
+    Returns the largest error vs plain."""
+    from pose6d_tpu_torch.losses.add import add_metrics
+    from pose6d_tpu_torch.ops import addmin
+
+    check(len(kernel_calls) == 2 and len(metric_calls) == 2,
+          f"eval step: {len(kernel_calls)} addmin calls, {len(metric_calls)} add_metrics calls")
+    worst = 0.0
+    for (pred, gt), _, got in kernel_calls:
+        check(tuple(pred.shape) == (batch, N_POINTS, 3), f"eval addmin shape {tuple(pred.shape)}")
+        want = addmin._pairwise_min_dist(pred, gt)
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        exact = torch.cdist(pred.double(), gt.double()).amin(-1)
+        err_exact = (got.double() - exact).abs().max().item()
+        check(err <= ADDMIN_ATOL * scale, f"eval addmin: max err vs plain {err:.3g}")
+        check(err_exact <= 1e-7 * scale, f"eval addmin: max err vs f64 {err_exact:.3g}")
+        worst = max(worst, err)
+    to_cpu = lambda v: v.cpu() if torch.is_tensor(v) else v  # noqa: E731
+    for args, kwargs, got in metric_calls:
+        want = add_metrics(*map(to_cpu, args), **{k: to_cpu(v) for k, v in kwargs.items()})
+        for k in ("add_mean", "add_s_mean"):
+            diff = abs(got[k].item() - want[k].item())
+            check(diff <= max(1e-3, 1e-5 * abs(want[k].item())),
+                  f"eval {k}: kernel {got[k].item()} vs plain {want[k].item()} (mm)")
+        for k in ("add_01d_acc", "count"):
+            check(got[k].item() == want[k].item(), f"eval {k}: {got[k].item()} vs "
+                  f"{want[k].item()}")
+    log(f"  eval addmin at [{batch}, {N_POINTS}, 3]: max err vs plain {worst:.3g}; "
+        f"add_metrics of both calls match the plain version")
+    return worst
+
+
+def phase_train(store, rng):
+    """One make_train_epoch call of TRAIN_STEPS rgbd steps at batch 32 on
+    the resident split, after a 1-step warm-up call, with the launch
+    counts set to 0 just before and read just after; then one eval batch
+    through make_eval_step, whose two addmin launches are held against the
+    plain version on their own inputs (check_eval_addmin). Returns the
+    launch counts, the step time, the losses and the eval addmin error."""
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.losses import add as add_mod
+    from pose6d_tpu_torch.train import loop as tl
+
+    dev = store.device
+    cfg = tl.TrainConfig(variant="rgbd")
+    check((cfg.img_size, cfg.batch_size, cfg.learning_rate, cfg.compute_dtype)
+          == (224, 32, 1e-4, "float32"), "TrainConfig defaults moved")
+    state = tl.create_train_state(cfg, seed=SEED + 7, device=dev)
+    hw = (store.frame_h, store.frame_w)
+    epoch = tl.make_train_epoch(cfg, frame_hw=hw)
+    meta, n_steps = store.epoch_meta(cfg.batch_size, rng)
+    check(n_steps > TRAIN_STEPS, f"the split holds {n_steps} batches")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    state, _ = epoch(state, store.rgb_frames, store.depth_frames,
+                     {k: v[TRAIN_STEPS:TRAIN_STEPS + 1] for k, v in meta.items()}, g)
+    sync(dev)  # warm-up step (cuDNN plans, optimizer state), not counted
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+
+    _build.launch_counts.clear()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    torch.cuda.set_sync_debug_mode("error")  # any wait for the card raises
+    try:
+        state, losses = epoch(state, store.rgb_frames, store.depth_frames,
+                              {k: v[:TRAIN_STEPS] for k, v in meta.items()}, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.record()
+    host_enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    counts = dict(_build.launch_counts)
+    log(f"  epoch launches: {counts}")
+    check(counts == {"gather_rows_u32": 2 * TRAIN_STEPS},
+          f"epoch launched {counts}, expected {2 * TRAIN_STEPS} gathers and nothing else")
+    check(tuple(losses.shape) == (TRAIN_STEPS,) and bool(torch.isfinite(losses).all()),
+          f"losses {losses.tolist()}")
+    check(state.step == TRAIN_STEPS + 1, f"state.step {state.step}")
+    after = state.model.state_dict()
+    params = {k for k, _ in state.model.named_parameters()}
+    stats = {k for k in after if "running_" in k}
+    stuck = [k for k in params | stats if torch.equal(before[k], after[k])]
+    check(not stuck, f"{len(stuck)} parameters or BN statistics did not move, e.g. {stuck[:3]}")
+    del before
+
+    models = seeded_object_models(rng, dev)
+    eval_meta = next(store.batches(cfg.batch_size, rng, shuffle=True, drop_remainder=False))
+    _build.launch_counts.clear()
+    batch = tl.expand_device_batch(store.rgb_frames, store.depth_frames,
+                                   tl.to_device(eval_meta, dev), cfg.img_size, hw)
+    sync(dev)
+    gathers = dict(_build.launch_counts)
+    check(gathers == {"gather_rows_u32": 2}, f"eval batch launched {gathers}")
+    kernel_calls, metric_calls = [], []
+    _build.launch_counts.clear()
+    with spy(add_mod, "pairwise_min_dist_kernel", kernel_calls), \
+            spy(tl, "add_metrics", metric_calls):
+        metrics = tl.make_eval_step(cfg, models)(state, batch)
+    sync(dev)
+    ev = dict(_build.launch_counts)
+    check(ev == {"pairwise_min_dist": 2}, f"eval step launched {ev}, expected 2 addmin")
+    addmin_err = check_eval_addmin(kernel_calls, metric_calls, cfg.batch_size)
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()), "eval metrics not finite")
+    check(int(metrics["count"]) == cfg.batch_size, f"eval count {int(metrics['count'])}")
+    check(tuple(metrics["pred_rot"].shape) == (cfg.batch_size, 4), "eval pred_rot shape")
+    log(f"  losses {[round(x, 4) for x in losses.tolist()]}; eval "
+        + ", ".join(f"{k} {float(metrics[k]):.4f}" for k in
+                    ("loss", "add_mean", "add_s_mean", "add_01d_acc", "add_01d_acc_deploy")))
+    totals = collections.Counter(counts)
+    totals.update(gathers)
+    totals.update(ev)
+    profile_step(epoch, state, store, {k: v[TRAIN_STEPS + 1:TRAIN_STEPS + 2]
+                                       for k, v in meta.items()}, g, step_ms)
+    return totals, {"step_ms": step_ms, "host_enqueue_ms": host_enqueue_ms,
+                    "losses": losses.tolist(), "addmin_max_abs_err": addmin_err}
+
+
+def profile_step(epoch, state, store, meta, g, step_ms: float) -> None:
+    """One more train step under torch.profiler: the card's kernel time by
+    kernel, its sum, and that sum over the unprofiled step time (the busy
+    share; the rest is the card waiting for the host). Printed only; where
+    the profiler sees no CUDA kernel, it says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(state, store.rgb_frames, store.depth_frames, meta, g)
+        sync(store.device)
+    # kernels only: a user range (e.g. the optimizer's step) would count its
+    # kernels a second time
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels or total_us <= 0:
+        log("  profile: not measured (the profiler recorded no CUDA kernel time)")
+        return
+    log(f"  profile of one step: {total_us / 1e3:.3f} ms of kernels in {len(kernels)} kinds, "
+        f"{sum(e.count for e in kernels)} launches; busy share {total_us / 1e3 / step_ms:.3f} "
+        f"of the unprofiled {step_ms:.3f} ms/step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
 def setup(rng, device):
     """Seeded full-width weights; per path (rgbd with the stem and layer1
     kernels, rgbd_geometric with the stem and stage 1-2 kernels) the folded
@@ -489,12 +750,13 @@ def setup(rng, device):
 
         paths[variant] = (make().fold_backbones(**fold), make())
     frames, depths = make_requests(rng)
+    store = seeded_split(rng, device)
     pipe = paths["rgbd"][0]
     with torch.inference_mode():
         K = torch.from_numpy(LINEMOD_K).to(device).expand(BATCH, 3, 3)
         tower_inputs = pipe.crop_stage(torch.from_numpy(frames[0]).to(device), K,
                                        torch.from_numpy(depths[0]).to(device))["inputs"]
-    return paths, frames, depths, tower_inputs
+    return paths, frames, depths, tower_inputs, store
 
 
 def main() -> int:
@@ -523,14 +785,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    paths, frames, depths, tower_inputs = setup(rng, "cuda")
-    log(f"  set-up: seeded weights, pipelines and requests ({time.perf_counter() - t0:.1f}s)")
+    paths, frames, depths, tower_inputs, store = setup(rng, "cuda")
+    log(f"  set-up: seeded weights, pipelines, requests and the resident split of "
+        f"{len(store)} frames, {store.nbytes() / 2**20:.1f} MiB ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     with torch.inference_mode():
-        rows = phase_kernels(paths["rgbd"][0], paths["rgbd_geometric"][0], tower_inputs, rng)
+        rows = phase_kernels(paths["rgbd"][0], paths["rgbd_geometric"][0], tower_inputs,
+                             store, rng)
     log(f"[phase 3 kernels] each kernel matches its plain version in f32 and bf16, "
-        f"fused_stage s1 equals fused_layer1 bit for bit ({time.perf_counter() - t0:.1f}s)")
+        f"fused_stage s1 equals fused_layer1 bit for bit, the gather is bit-equal "
+        f"({time.perf_counter() - t0:.1f}s)")
 
     launches, outs, serving = collections.Counter(), {}, {}
     for n, (variant, expected, exact) in enumerate((
@@ -551,16 +816,31 @@ def main() -> int:
             launches["pairwise_min_dist"] += phase_add(out, rng)
     log(f"[phase 6 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    counts, train = phase_train(store, rng)
+    launches.update(counts)
+    log(f"[phase 7 train rgbd] {TRAIN_STEPS} steps at batch 32, 224, f32 (TF32 off) on {smi}: "
+        f"smoke reading, not a throughput: {train['step_ms']:.3f} ms/step (CUDA events over "
+        f"the epoch call; host enqueue {train['host_enqueue_ms']:.1f} ms), losses finite, "
+        f"every parameter and BN statistic moved, gathers {counts['gather_rows_u32']} "
+        f"(8 epoch + 2 eval batch), addmin {counts['pairwise_min_dist']} "
+        f"({time.perf_counter() - t0:.1f}s)")
+
     for r in rows:
         r["launches"] = launches.get(r["name"], 0)
+        if r["name"] == "pairwise_min_dist":  # phase 3's shape and the eval step's
+            r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(f"[phase 7 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 8 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())
+        + f"; train rgbd {train['step_ms']:.3f} ms/step"
         + f" ({time.perf_counter() - t_all:.1f}s total)")
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                 **{k: v for k, v in r.items() if k.startswith("depth_")}}
+                                for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

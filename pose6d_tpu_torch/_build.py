@@ -11,18 +11,23 @@ launches on that stream without synchronising, allocates nothing, and returns
 `cudaGetLastError()` as an int; `check()` raises on a non-zero code.
 
 `launch_counts` counts kernel launches by name: each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else. Each wrapper launches inside
+`on_device(x.device)`: the C entry points launch on the current device, so
+the guard makes x's device current and passes that device's stream.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import glob
 import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -46,6 +51,8 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # pred, gt, out, B, P, stream
     "pose6d_addmin_forward": [_P, _P, _P, _I, _I, _P],
+    # src, idx, out, N, B, R (32-bit words per row), stream
+    "pose6d_gather_rows_u32": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -102,3 +109,23 @@ def lib() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def check_on_card(x: torch.Tensor, tensors=()) -> None:
+    """The kernels take contiguous tensors, all on x's CUDA device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}: CPU runs the plain "
+                         f"version, CUDA the kernel")
+    for t in (x, *tensors):
+        if t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, expected {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device):
+    """Make `device` current for a launch and yield its current stream's
+    handle (an int, for the C entry points)."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE
-from ..data.crop import DEPTH_INVALID_M, DEPTH_MAX_M, DEPTH_MIN_M
+from ..data.crop import normalize_depth
 from ..geometry.pinhole import adjust_intrinsics_for_crop, pinhole_xy_from_z
 from ..models.posenet import VARIANTS, PoseNet, PoseNetConfig
 from ..models.posenet_serving import serving_forward
@@ -42,7 +42,7 @@ from ..ops.quant import fold_bn_resnet
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    variant: str = "rgbd"  # rgb | rgb_geometric | rgbd | rgbd_geometric
+    variant: str = "rgb"  # rgb | rgb_geometric | rgbd | rgbd_geometric
     img_size: int = 224
     conf_thresh: float = 0.25
     # towers, crops and frames; the rgbd net sees only the normalized depth,
@@ -113,7 +113,7 @@ class PosePipeline:
             raise NotImplementedError(
                 f"frames {H}x{W} need the letterbox path (sides must divide "
                 f"{stride}); it is not ported yet")
-        outputs = self.yolo(frames_norm.float())
+        outputs = self.yolo(frames_norm.to(self.yolo_cfg.dtype))
         dets = decode_topk_nms(outputs, self.yolo_cfg, (H, W), max_det=1,
                                conf_thresh=self.cfg.conf_thresh)
         x1, y1, x2, y2 = dets["boxes"].unbind(-1)
@@ -144,9 +144,7 @@ class PosePipeline:
             inputs.update(bbox_center=center, camera_matrix=camera_K)
         elif cfg.variant == "rgbd":
             depth_crop = crop(depth_raw_full[..., None], cd)[..., 0]
-            dn = torch.clamp((depth_crop - DEPTH_MIN_M) / (DEPTH_MAX_M - DEPTH_MIN_M), 0.0, 1.0)
-            dn = torch.where(depth_crop < DEPTH_INVALID_M, torch.zeros_like(dn), dn)
-            inputs["depth"] = dn[..., None].to(cd)
+            inputs["depth"] = normalize_depth(depth_crop)[..., None].to(cd)
         elif cfg.variant == "rgbd_geometric":
             # crop-frame bookkeeping; the device crop never materializes
             # padding, so the pad terms are zero and x1 may be negative

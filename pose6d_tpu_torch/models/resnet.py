@@ -1,4 +1,4 @@
-"""ResNet-50 backbone, eval-mode float tower (counterpart of
+"""ResNet-50 backbone, float tower (counterpart of
 pose6d_tpu/models/resnet.py).
 
 Module attributes carry the flax scope names (conv1, bn1, layer{i}_{j},
@@ -6,6 +6,11 @@ downsample_conv, downsample_bn) so that convert.py maps a flax tree onto
 this module by transposes alone. The public forward takes NHWC images and
 returns globally average-pooled features [B, 2048]; inside, tensors are
 NCHW as torch's convolutions expect.
+
+BatchNorm is `BatchNorm`, flax's nn.BatchNorm(momentum=0.9, epsilon=1e-5):
+in eval mode it normalizes with the running statistics; in train mode
+(module.train()) with the batch statistics, and it updates the running
+statistics as flax does (see the class).
 """
 
 from __future__ import annotations
@@ -16,10 +21,38 @@ import torch.nn.functional as F
 
 STAGE_SIZES = (3, 4, 6, 3)
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm2d):
+    """flax nn.BatchNorm(momentum=0.9) on [B, C] or [B, C, H, W] maps (one
+    class for the towers' 2-D and the heads' 1-D norms; the state_dict keys
+    are torch's).
+
+    Train mode normalizes with the biased batch variance, as torch's
+    F.batch_norm does, and updates running = 0.9 * running + 0.1 * batch
+    with the biased batch variance, as flax does (torch's own BatchNorm
+    would update with the unbiased one). num_batches_tracked stays as it
+    is: flax keeps no such count."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS)
+
+    def _check_input_dim(self, x):
+        if x.dim() not in (2, 4):
+            raise ValueError(f"expected a [B, C] or [B, C, H, W] input, got {x.dim()}-D")
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0,) if x.dim() == 2 else (0, 2, 3),
+                                       correction=0)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        return y
 
 
 class BottleneckBlock(nn.Module):
@@ -32,14 +65,14 @@ class BottleneckBlock(nn.Module):
         cout = features * 4
         self.stride = stride
         self.conv1 = nn.Conv2d(cin, features, 1, bias=False)
-        self.bn1 = _bn(features)
+        self.bn1 = BatchNorm(features)
         self.conv2 = nn.Conv2d(features, features, 3, stride, padding=1, bias=False)
-        self.bn2 = _bn(features)
+        self.bn2 = BatchNorm(features)
         self.conv3 = nn.Conv2d(features, cout, 1, bias=False)
-        self.bn3 = _bn(cout)
+        self.bn3 = BatchNorm(cout)
         if cin != cout or stride != 1:
             self.downsample_conv = nn.Conv2d(cin, cout, 1, stride, bias=False)
-            self.downsample_bn = _bn(cout)
+            self.downsample_bn = BatchNorm(cout)
         else:
             self.downsample_conv = None
 
@@ -55,7 +88,7 @@ class ResNet50(nn.Module):
     def __init__(self, in_channels: int = 3, num_filters: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, num_filters, 7, 2, padding=3, bias=False)
-        self.bn1 = _bn(num_filters)
+        self.bn1 = BatchNorm(num_filters)
         cin = num_filters
         for i, n_blocks in enumerate(STAGE_SIZES):
             features = num_filters * 2**i

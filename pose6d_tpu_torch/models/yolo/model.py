@@ -1,6 +1,7 @@
 """YOLOv8 detector: backbone, PAN-FPN neck, decoupled DFL head
 (counterpart of pose6d_tpu/models/yolo/model.py). 'n' is depth 1/3,
-width 1/4, ratio 2."""
+width 1/4, ratio 2. `dtype` is the compute type (modules.py): f32 by
+default as in the JAX package, bf16 where its benchmark serves."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .modules import C2f, ConvBN, SPPF, upsample2x
+from .modules import C2f, ConvBN, SPPF, conv_in, upsample2x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +22,7 @@ class YoloConfig:
     ratio: float = 2.0
     reg_max: int = 16
     strides: Tuple[int, ...] = (8, 16, 32)
+    dtype: torch.dtype = torch.float32
 
     def ch(self, c: int) -> int:
         return max(int(round(c * self.width)), 1)
@@ -36,17 +38,17 @@ class YoloConfig:
 class YoloBackbone(nn.Module):
     def __init__(self, c: YoloConfig, in_channels: int = 3):
         super().__init__()
-        w, d = c.ch, c.depth_n
-        self.stem = ConvBN(in_channels, w(64), 3, 2)
-        self.down1 = ConvBN(w(64), w(128), 3, 2)
-        self.c2f_1 = C2f(w(128), w(128), d(3), True)
-        self.down2 = ConvBN(w(128), w(256), 3, 2)
-        self.c2f_2 = C2f(w(256), w(256), d(6), True)
-        self.down3 = ConvBN(w(256), w(512), 3, 2)
-        self.c2f_3 = C2f(w(512), w(512), d(6), True)
-        self.down4 = ConvBN(w(512), c.c5, 3, 2)
-        self.c2f_4 = C2f(c.c5, c.c5, d(3), True)
-        self.sppf = SPPF(c.c5, c.c5)
+        w, d, dt = c.ch, c.depth_n, c.dtype
+        self.stem = ConvBN(in_channels, w(64), 3, 2, dt)
+        self.down1 = ConvBN(w(64), w(128), 3, 2, dt)
+        self.c2f_1 = C2f(w(128), w(128), d(3), True, dt)
+        self.down2 = ConvBN(w(128), w(256), 3, 2, dt)
+        self.c2f_2 = C2f(w(256), w(256), d(6), True, dt)
+        self.down3 = ConvBN(w(256), w(512), 3, 2, dt)
+        self.c2f_3 = C2f(w(512), w(512), d(6), True, dt)
+        self.down4 = ConvBN(w(512), c.c5, 3, 2, dt)
+        self.c2f_4 = C2f(c.c5, c.c5, d(3), True, dt)
+        self.sppf = SPPF(c.c5, c.c5, dtype=dt)
 
     def forward(self, x):
         x = self.c2f_1(self.down1(self.stem(x)))
@@ -59,13 +61,13 @@ class YoloBackbone(nn.Module):
 class YoloNeck(nn.Module):
     def __init__(self, c: YoloConfig):
         super().__init__()
-        w, d = c.ch, c.depth_n
-        self.td_p4 = C2f(c.c5 + w(512), w(512), d(3), False)
-        self.td_p3 = C2f(w(512) + w(256), w(256), d(3), False)
-        self.bu_down3 = ConvBN(w(256), w(256), 3, 2)
-        self.bu_p4 = C2f(w(256) + w(512), w(512), d(3), False)
-        self.bu_down4 = ConvBN(w(512), w(512), 3, 2)
-        self.bu_p5 = C2f(w(512) + c.c5, c.c5, d(3), False)
+        w, d, dt = c.ch, c.depth_n, c.dtype
+        self.td_p4 = C2f(c.c5 + w(512), w(512), d(3), False, dt)
+        self.td_p3 = C2f(w(512) + w(256), w(256), d(3), False, dt)
+        self.bu_down3 = ConvBN(w(256), w(256), 3, 2, dt)
+        self.bu_p4 = C2f(w(256) + w(512), w(512), d(3), False, dt)
+        self.bu_down4 = ConvBN(w(512), w(512), 3, 2, dt)
+        self.bu_p5 = C2f(w(512) + c.c5, c.c5, d(3), False, dt)
 
     def forward(self, p3, p4, p5):
         t4 = self.td_p4(torch.cat([upsample2x(p5), p4], dim=1))
@@ -83,12 +85,13 @@ class DetectHead(nn.Module):
         c_box = max(16, in_channels[0] // 4, c.reg_max * 4)
         c_cls = max(in_channels[0], min(c.num_classes, 100))
         self.n_levels = len(in_channels)
+        self.dtype = dt = c.dtype
         for i, ci in enumerate(in_channels):
-            setattr(self, f"box{i}_0", ConvBN(ci, c_box, 3))
-            setattr(self, f"box{i}_1", ConvBN(c_box, c_box, 3))
+            setattr(self, f"box{i}_0", ConvBN(ci, c_box, 3, dtype=dt))
+            setattr(self, f"box{i}_1", ConvBN(c_box, c_box, 3, dtype=dt))
             setattr(self, f"box{i}_out", nn.Conv2d(c_box, 4 * c.reg_max, 1))
-            setattr(self, f"cls{i}_0", ConvBN(ci, c_cls, 3))
-            setattr(self, f"cls{i}_1", ConvBN(c_cls, c_cls, 3))
+            setattr(self, f"cls{i}_0", ConvBN(ci, c_cls, 3, dtype=dt))
+            setattr(self, f"cls{i}_1", ConvBN(c_cls, c_cls, 3, dtype=dt))
             setattr(self, f"cls{i}_out", nn.Conv2d(c_cls, c.num_classes, 1))
 
     def forward(self, feats):
@@ -97,9 +100,9 @@ class DetectHead(nn.Module):
             branch = {}
             for kind in ("box", "cls"):
                 y = x
-                for part in ("0", "1", "out"):
+                for part in ("0", "1"):
                     y = getattr(self, f"{kind}{i}_{part}")(y)
-                branch[kind] = y
+                branch[kind] = conv_in(getattr(self, f"{kind}{i}_out"), y, self.dtype)
             outs.append((branch["box"], branch["cls"]))
         return outs
 
@@ -107,7 +110,7 @@ class DetectHead(nn.Module):
 class YoloV8(nn.Module):
     """Full detector. forward(x [B, H, W, 3] NHWC float) returns a list of
     (box_logits [B, Hi, Wi, 4*reg_max], cls_logits [B, Hi, Wi, nc]) per
-    stride level, NHWC like the JAX model."""
+    stride level, NHWC like the JAX model, in cfg.dtype."""
 
     def __init__(self, cfg: YoloConfig = YoloConfig()):
         super().__init__()

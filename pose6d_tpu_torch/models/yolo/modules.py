@@ -3,6 +3,11 @@
 Tensors are NCHW inside; attribute names follow the flax scopes (conv, bn,
 cv1, cv2, m{i}) so convert.py maps weights by transposes alone. BatchNorm
 uses ultralytics' eps=1e-3.
+
+`dtype` is the compute type, as flax's `dtype=` on nn.Conv / nn.BatchNorm:
+parameters stay f32 and are cast at use, convolutions take and give dtype,
+and BatchNorm computes in f32 (its f32 statistics promote the input) and
+rounds its output to dtype.
 """
 
 from __future__ import annotations
@@ -14,25 +19,35 @@ import torch.nn.functional as F
 BN_EPS = 1e-3
 
 
-class ConvBN(nn.Module):
-    """Conv2d + BatchNorm + SiLU (ultralytics `Conv`)."""
+def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """conv applied in dtype: input, weight and bias cast at use."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride, conv.padding)
 
-    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
+
+class ConvBN(nn.Module):
+    """Conv2d + BatchNorm + SiLU (ultralytics `Conv`) in dtype."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
 
     def forward(self, x):
-        return F.silu(self.bn(self.conv(x)))
+        y = self.bn(conv_in(self.conv, x, self.dtype).float())
+        return F.silu(y.to(self.dtype))
 
 
 class Bottleneck(nn.Module):
     """Two 3x3 ConvBNs with an optional residual (ultralytics `Bottleneck`)."""
 
-    def __init__(self, cin: int, features: int, shortcut: bool = True):
+    def __init__(self, cin: int, features: int, shortcut: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cv1 = ConvBN(cin, features, 3)
-        self.cv2 = ConvBN(features, features, 3)
+        self.cv1 = ConvBN(cin, features, 3, dtype=dtype)
+        self.cv2 = ConvBN(features, features, 3, dtype=dtype)
         self.add = shortcut and cin == features
 
     def forward(self, x):
@@ -44,14 +59,15 @@ class C2f(nn.Module):
     """CSP bottleneck with two convs: cv1 splits into two halves, n
     bottlenecks chain on the second, all 2 + n chunks concat into cv2."""
 
-    def __init__(self, cin: int, features: int, n: int = 1, shortcut: bool = False):
+    def __init__(self, cin: int, features: int, n: int = 1, shortcut: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden = features // 2
         self.n = n
-        self.cv1 = ConvBN(cin, 2 * self.hidden, 1)
+        self.cv1 = ConvBN(cin, 2 * self.hidden, 1, dtype=dtype)
         for i in range(n):
-            setattr(self, f"m{i}", Bottleneck(self.hidden, self.hidden, shortcut))
-        self.cv2 = ConvBN((2 + n) * self.hidden, features, 1)
+            setattr(self, f"m{i}", Bottleneck(self.hidden, self.hidden, shortcut, dtype))
+        self.cv2 = ConvBN((2 + n) * self.hidden, features, 1, dtype=dtype)
 
     def forward(self, x):
         chunks = list(self.cv1(x).split(self.hidden, dim=1))
@@ -63,12 +79,13 @@ class C2f(nn.Module):
 class SPPF(nn.Module):
     """Spatial pyramid pooling, fast: three chained 5x5/s1 max pools."""
 
-    def __init__(self, cin: int, features: int, pool: int = 5):
+    def __init__(self, cin: int, features: int, pool: int = 5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = cin // 2
         self.pool = pool
-        self.cv1 = ConvBN(cin, hidden, 1)
-        self.cv2 = ConvBN(hidden * 4, features, 1)
+        self.cv1 = ConvBN(cin, hidden, 1, dtype=dtype)
+        self.cv2 = ConvBN(hidden * 4, features, 1, dtype=dtype)
 
     def forward(self, x):
         pools = [self.cv1(x)]

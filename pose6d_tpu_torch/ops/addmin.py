@@ -44,14 +44,9 @@ def pairwise_min_dist_kernel(pred_pts: torch.Tensor, gt_pts: torch.Tensor) -> to
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(pred_pts.shape)}")
     if pred_pts.device.type == "cpu":
         return _pairwise_min_dist(pred_pts, gt_pts)
-    if pred_pts.device.type != "cuda":
-        raise ValueError(f"unsupported device {pred_pts.device}: CPU runs the plain "
-                         f"version, CUDA the kernel")
-    for t in (pred_pts, gt_pts):
-        if t.device != pred_pts.device or not t.is_contiguous():
-            raise ValueError(f"the kernel takes contiguous tensors on {pred_pts.device}")
+    _build.check_on_card(pred_pts, (gt_pts,))
     out = torch.empty(pred_pts.shape[:2], dtype=torch.float32, device=pred_pts.device)
-    _launch_addmin(pred_pts, gt_pts, out,
-                   torch.cuda.current_stream(pred_pts.device).cuda_stream)
+    with _build.on_device(pred_pts.device) as stream:
+        _launch_addmin(pred_pts, gt_pts, out, stream)
     _build.launch_counts["pairwise_min_dist"] += 1
     return out

@@ -164,21 +164,6 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _check_on_card(x: torch.Tensor, tensors) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}: CPU runs the plain "
-                         f"version, CUDA the kernel")
-    for t in (x, *tensors):
-        if t.device != x.device:
-            raise ValueError(f"tensor on {t.device}, expected {x.device}")
-        if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous tensors")
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _launch_stem(x, w, b, out, stream: int) -> None:
     B, _, _, C = x.shape
     code = _build.lib().pose6d_stem_forward(
@@ -211,9 +196,10 @@ def fused_stem(x: torch.Tensor, weights) -> torch.Tensor:
     _check("b", b, torch.float32, (CIN,))
     if x.device.type == "cpu":
         return reference_stem(x, weights)
-    _check_on_card(x, (w, b))
+    _build.check_on_card(x, (w, b))
     out = torch.empty((x.shape[0], H, W, CIN), dtype=x.dtype, device=x.device)
-    _launch_stem(x, w, b, out, _stream(x.device))
+    with _build.on_device(x.device) as stream:
+        _launch_stem(x, w, b, out, stream)
     _build.launch_counts[f"fused_stem_c{C}"] += 1
     return out
 
@@ -257,9 +243,10 @@ def fused_layer1(x: torch.Tensor, weights) -> torch.Tensor:
     _check_stage("fused_layer1", x, weights, 1)
     if x.device.type == "cpu":
         return reference_layer1(x, weights)
-    _check_on_card(x, weights)
+    _build.check_on_card(x, weights)
     scratch, out = _stage_buffers(x, 1)
-    _launch_stage(x, weights, 1, scratch, out, _stream(x.device))
+    with _build.on_device(x.device) as stream:
+        _launch_stage(x, weights, 1, scratch, out, stream)
     _build.launch_counts["fused_layer1"] += 1
     return out
 
@@ -272,8 +259,9 @@ def fused_stage(x: torch.Tensor, weights, stage: int) -> torch.Tensor:
     _check_stage("fused_stage", x, weights, stage)
     if x.device.type == "cpu":
         return reference_stage(x, weights, stage)
-    _check_on_card(x, weights)
+    _build.check_on_card(x, weights)
     scratch, out = _stage_buffers(x, stage)
-    _launch_stage(x, weights, stage, scratch, out, _stream(x.device))
+    with _build.on_device(x.device) as stream:
+        _launch_stage(x, weights, stage, scratch, out, stream)
     _build.launch_counts[f"fused_stage_s{stage}"] += 1
     return out

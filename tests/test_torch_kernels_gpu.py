@@ -4,7 +4,12 @@ without one). Run on a machine with a CUDA card and nvcc:
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
 Kernels: the fused stem, layer1, the parametric stage (stages 1-4, and
-stage 1 bit for bit equal to layer1) and the ADD-S nearest-point search.
+stage 1 bit for bit equal to layer1), the ADD-S nearest-point search and
+the frame-row gather (bit for bit equal to its plain version). Beside
+them: each kernel launches on its input's card when another card is
+current (skipped below two cards), one device-preprocess train step of
+each PoseNet variant is finite on the card, and the rgbd train epoch
+never waits for the card (torch.cuda.set_sync_debug_mode("error")).
 Tolerances: f32 kernel vs plain max error <= 1e-4 * max(1, |plain|max)
 (different f32 summation order); bf16 kernel vs the f32 plain version
 within the bf16 envelope (mean error < 0.02 std, max < 0.25 std);
@@ -15,8 +20,11 @@ import pytest
 import torch
 
 from pose6d_tpu_torch import _build
+from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
 from pose6d_tpu_torch.ops import addmin
 from pose6d_tpu_torch.ops import fused_block as fb
+from pose6d_tpu_torch.ops import gather_frames as gf
+from pose6d_tpu_torch.train import loop as tloop
 
 pytestmark = pytest.mark.gpu
 
@@ -130,3 +138,123 @@ def test_kernels_refuse_non_contiguous(cuda):
     w = _to(fb.pack_stem_weights(_folded({"conv1": (7, 3, 64)}), torch.float32), cuda)
     with pytest.raises(ValueError):
         fb.fused_stem(x, w)
+    words = torch.zeros(4, 512, dtype=torch.int32, device=cuda)[:, ::2]
+    with pytest.raises(ValueError):
+        gf.gather_rows_u32(words, torch.tensor([0], device=cuda))
+    frames = torch.zeros(8, 48, 64, 3, dtype=torch.uint8, device=cuda)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        gf.gather_frames(frames, torch.tensor([0], device=cuda))
+
+
+@pytest.mark.parametrize("frame", [(480, 640, 3), (480, 640)])  # RGB words, depth words
+def test_gather_kernel_bit_equal(cuda, frame):
+    rng = np.random.default_rng(7)
+    dtype = np.uint8 if len(frame) == 3 else np.uint16
+    src = rng.integers(0, np.iinfo(dtype).max, (40, *frame), dtype=dtype)
+    words = torch.from_numpy(gf.pack_frames_host(src).view(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 40, 32)).to(cuda)
+    idx[:3] = torch.tensor([0, 39, 39])
+    before = _build.launch_counts["gather_rows_u32"]
+    got = gf.gather_rows_u32(words, idx)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_rows_u32"] == before + 1
+    assert torch.equal(got, gf._gather_rows_plain(words, idx))
+    unpacked = gf.gather_frames_packed(words, idx, frame, torch.uint8 if len(frame) == 3
+                                       else torch.int16)
+    want = src[idx.cpu().numpy()]
+    np.testing.assert_array_equal(unpacked.cpu().numpy().view(dtype), want)
+    # indices outside [0, N) clamp, as the plain version does
+    wild = torch.tensor([-5, 40, 1000, 3], device=cuda)
+    assert torch.equal(gf.gather_rows_u32(words, wild), gf._gather_rows_plain(words, wild))
+
+
+@pytest.mark.parametrize("rows,r", [(3, 128), (5, 128 * 9), (2, 4096 + 128)])
+def test_gather_kernel_row_lengths(cuda, rows, r):
+    """Rows shorter than one block's 1024 vectors, and ragged last chunks."""
+    words = torch.randint(-2**31, 2**31 - 1, (rows, r), dtype=torch.int32, device=cuda)
+    idx = torch.arange(rows - 1, -1, -1, device=cuda)
+    assert torch.equal(gf.gather_rows_u32(words, idx), words.flip(0))
+    assert torch.equal(gf.gather_rows_u32(words.view(torch.uint32), idx).view(torch.int32),
+                       words.flip(0))
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    return torch.device("cuda:1")
+
+
+def test_kernels_launch_on_the_inputs_card(two_cards):
+    """With card 0 current, every wrapper given tensors on card 1 launches
+    there (its device guard) and matches its plain version there."""
+    dev = two_cards
+    g = torch.Generator().manual_seed(0)
+    w = _to(fb.pack_stem_weights(_folded({"conv1": (7, 3, 64)}), torch.float32), dev)
+    x = torch.randn(1, 224, 224, 3, generator=g).to(dev)
+    _check(fb.fused_stem(x, w), fb.reference_stem(x, w), torch.float32)
+    wts = _to(_stage_weights(1, torch.float32), dev)
+    h = torch.randn(1, 56, 56, 64, generator=g).to(dev)
+    _check(fb.fused_layer1(h, wts), fb.reference_layer1(h, wts), torch.float32)
+    _check(fb.fused_stage(h, wts, 1), fb.reference_stage(h, wts, 1), torch.float32)
+    pts = torch.randn(2, 100, 3, generator=g).to(dev)
+    assert (addmin.pairwise_min_dist_kernel(pts, pts.flip(1))
+            - addmin._pairwise_min_dist(pts, pts.flip(1))).abs().max().item() <= 1e-6
+    words = torch.randint(0, 1000, (4, 256), dtype=torch.int32).to(dev)
+    idx = torch.tensor([3, 1], device=dev)
+    assert torch.equal(gf.gather_rows_u32(words, idx), gf._gather_rows_plain(words, idx))
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+
+
+def _store(cuda, variant, n=12):
+    from torch_port_utils import train_split
+
+    rgb, depth, bbox, rot, trans_mm, obj_id, K = train_split(0)
+    rng = np.random.default_rng(1)
+    # LineMOD-sized frames: the store packs them into words, the gather
+    # kernel moves them
+    rgb = rng.integers(0, 256, (n, 480, 640, 3), dtype=np.uint8)
+    depth = rng.integers(300, 1500, (n, 480, 640)).astype(np.uint16)
+    bbox = bbox[:n] * 4 + np.array([100, 100, 0, 0])
+    return DeviceFrameStore(rgb, depth, bbox, rot[:n], trans_mm[:n], obj_id[:n], K[:n],
+                            flavor="rgbd" if variant.startswith("rgbd") else "rgb", device=cuda)
+
+
+@pytest.mark.parametrize("variant", ["rgb", "rgb_geometric", "rgbd", "rgbd_geometric"])
+def test_train_step_finite_on_the_card(cuda, variant):
+    store = _store(cuda, variant)
+    cfg = tloop.TrainConfig(variant=variant, batch_size=4)
+    state = tloop.create_train_state(cfg, seed=0, device=cuda)
+    step = tloop.make_train_step(cfg, device_preprocess=True,
+                                 frame_hw=(store.frame_h, store.frame_w))
+    meta = store.meta_batch(np.array([0, 3, 7, 11]), np.random.default_rng(2))
+    with_depth = variant.startswith("rgbd")
+    before = _build.launch_counts["gather_rows_u32"]
+    state, metrics = step(state, store.rgb_frames, store.depth_frames if with_depth else None,
+                          meta, torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_rows_u32"] == before + (2 if with_depth else 1)
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert state.step == 1
+
+
+def test_train_epoch_never_waits_for_the_card(cuda):
+    """rgbd, two steps: set_sync_debug_mode("error") raises at any
+    operation that would wait for the card."""
+    store = _store(cuda, "rgbd", n=8)
+    cfg = tloop.TrainConfig(variant="rgbd", batch_size=4)
+    state = tloop.create_train_state(cfg, seed=0, device=cuda)
+    epoch = tloop.make_train_epoch(cfg, frame_hw=(store.frame_h, store.frame_w))
+    meta, n = store.epoch_meta(4, np.random.default_rng(3))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state, _ = epoch(state, store.rgb_frames, store.depth_frames,
+                     {k: v[:1] for k, v in meta.items()}, g)  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, losses = epoch(state, store.rgb_frames, store.depth_frames, meta, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n == 2 and torch.isfinite(losses).all()

@@ -6,28 +6,36 @@ from __future__ import annotations
 import numpy as np
 
 
-def random_flax_variables(model, *args, seed: int = 0, **kwargs):
+def random_flax_variables(model, *args, seed: int = 0, trainable: bool = False, **kwargs):
     """Random variables for a flax module without running its init: the
     tree's shapes come from jax.eval_shape (tracing only), the values from
     numpy. Conv/dense kernels are He-scaled, every BatchNorm's scale, bias,
-    mean and var and every bias are random (no zero-init residuals)."""
+    mean and var and every bias are random (no zero-init residuals).
+
+    trainable: weights whose train-mode gradients are well conditioned in
+    f32, for the one-step tests: LeCun-scaled kernels (flax's lecun_normal
+    scale) and each bottleneck's last BN scale in [0.1, 0.3] (where flax's
+    init puts 0), so that 16 residual blocks stay near their identity."""
     import jax
 
     shapes = jax.eval_shape(lambda: model.init(jax.random.key(0), *args, **kwargs))
     rng = np.random.default_rng(seed)
 
-    def fill(tree, stats):
+    def fill(tree, stats, scope=""):
         out = {}
         for k, v in tree.items():
             if hasattr(v, "items"):
-                out[k] = fill(v, stats)
+                out[k] = fill(v, stats, k)
                 continue
             shape = v.shape
             if stats:
                 a = rng.normal(0, 0.1, shape) if k == "mean" else rng.uniform(0.5, 1.5, shape)
             elif k == "kernel":
                 fan_in = int(np.prod(shape[:-1]))
-                a = rng.normal(0, np.sqrt((2.0 if len(shape) == 4 else 1.0) / fan_in), shape)
+                gain = 2.0 if len(shape) == 4 and not trainable else 1.0
+                a = rng.normal(0, np.sqrt(gain / fan_in), shape)
+            elif k == "scale" and trainable and scope == "bn3":
+                a = rng.uniform(0.1, 0.3, shape)
             elif k == "scale":
                 a = rng.uniform(0.5, 1.2, shape)
             else:
@@ -62,3 +70,276 @@ def random_folded_stage(rng, stage: int):
         ttree[n] = {"w": torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
                     "b": torch.from_numpy(b)}
     return jtree, ttree
+
+
+# ---------------------------------------------------------------- training
+
+TRAIN_S, TRAIN_B, TRAIN_N, TRAIN_HW = 64, 4, 12, (64, 64)
+
+
+def train_split(seed: int = 0):
+    """A seeded split of TRAIN_N frames at TRAIN_HW: uint8 RGB, uint16 depth
+    (mm, some invalid), boxes, rotations, translations (mm), object ids
+    and intrinsics, as numpy."""
+    from scipy.spatial.transform import Rotation
+
+    rng = np.random.default_rng(seed)
+    n, (h, w) = TRAIN_N, TRAIN_HW
+    rgb = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    depth = rng.integers(400, 1400, (n, h, w)).astype(np.uint16)
+    depth[rng.random(depth.shape) < 0.05] = 0
+    bw, bh = rng.uniform(14, 30, n), rng.uniform(14, 30, n)
+    bbox = np.stack([rng.uniform(0, w - bw), rng.uniform(0, h - bh), bw, bh], -1)
+    rot = Rotation.from_quat(rng.normal(size=(n, 4))).as_matrix()
+    trans_mm = np.stack([rng.uniform(-60, 60, n), rng.uniform(-60, 60, n),
+                         rng.uniform(600, 1000, n)], -1)
+    K = np.tile(np.array([[572.4114, 0, w / 2], [0, 573.57043, h / 2], [0, 0, 1]],
+                         np.float32), (n, 1, 1))
+    return rgb, depth, bbox, rot, trans_mm, rng.integers(0, 3, n), K
+
+
+def disable_dropout(model):
+    """Every port Dropout to identity (rate 0)."""
+    from pose6d_tpu_torch.models.posenet import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return model
+
+
+def no_dropout_interceptor(next_fun, args, kwargs, context):
+    """flax.linen.intercept_methods interceptor: every nn.Dropout call
+    returns its input."""
+    import flax.linen as nn
+
+    if isinstance(context.module, nn.Dropout):
+        return args[0]
+    return next_fun(*args, **kwargs)
+
+
+def grad_capture_tx():
+    """An optax transformation that leaves the parameters as they are and
+    keeps the gradients it is given as its state: the JAX train step then
+    returns its gradients in opt_state["g"]."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    def init(params):
+        return {"g": jax.tree.map(jnp.zeros_like, params)}
+
+    def update(grads, state, params=None):
+        return jax.tree.map(jnp.zeros_like, grads), {"g": grads}
+
+    return optax.GradientTransformation(init, update)
+
+
+def one_train_step_both(variant: str, seed: int = 0, **flags):
+    """One train step of `variant` at TRAIN_S / TRAIN_B in both packages,
+    through make_train_step, from the same flax variables
+    (random_flax_variables, trainable) and the same batch, with dropout
+    off (interceptor / rate 0) and augmentation off (train_augment
+    patched to the eval path's normalization on both sides, so that both
+    networks see the same bits). The batch is the port's device batch of
+    a seeded split (expand_device_batch, held against JAX in
+    test_torch_device_pipeline.py), as numpy.
+
+    The JAX step is the reference and runs in float64 (jax.enable_x64,
+    PoseNetConfig dtype float64; the loss stays f32 as the package computes
+    it): in f32 its train-mode gradients are off by up to 1e-2 relative
+    per leaf at this depth (flax's E[x^2] - E[x]^2 batch variance, XLA's
+    sequential f32 sums). The port's step runs twice, with its f32 module
+    and with the same module converted to float64: a 50-layer train-mode
+    BN network has gradient leaves that are small remainders of cancelling
+    sums, off by up to 2e-2 relative in f32 for the port too (against its
+    float64 run), so the 1e-3 per-leaf statement is the float64 run's and
+    the f32 run's leaves are held at the looser LEAF_BOUNDS. The f32 run has
+    oneDNN off: its f32 convolution backward on the CPU moves the gradient
+    norm by up to 1.8e-4, torch's native convolutions by under 6e-5 (the
+    card runs cuDNN with TF32 off). The JAX step runs
+    with grad_capture_tx, the port's with clipping out of reach (grad_clip
+    1e9): p.grad after its step is the raw gradient. Returns (jax: {"loss",
+    "grad_norm", "grads" and "batch_stats" in the port's state_dict
+    layout}, {torch.float32: (TrainState, metrics), torch.float64:
+    (TrainState, metrics)}, variables, batch)."""
+    from unittest import mock
+
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from pose6d_tpu.models.posenet import PoseNet as JPoseNet, PoseNetConfig as JPoseNetConfig
+    from pose6d_tpu.ops.augment import eval_preprocess as j_eval_preprocess
+    from pose6d_tpu.train import loop as jloop
+    from pose6d_tpu_torch.convert import posenet_from_jax
+    from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
+    from pose6d_tpu_torch.models.posenet import PoseNet, PoseNetConfig
+    from pose6d_tpu_torch.ops.augment import eval_preprocess
+    from pose6d_tpu_torch.train import loop as tloop
+
+    S, B = TRAIN_S, TRAIN_B
+    dummy = {"rgb": jnp.zeros((1, S, S, 3)), "depth": jnp.zeros((1, S, S, 1)),
+             "depth_raw": jnp.zeros((1, S, S)), "center_orig": jnp.zeros((1, 2)),
+             "center_crop": jnp.zeros((1, 2)), "cam_K": jnp.eye(3)[None],
+             "cam_K_crop": jnp.eye(3)[None]}
+    variables = random_flax_variables(
+        JPoseNet(JPoseNetConfig(variant=variant, img_size=S, **flags)),
+        **jloop.model_inputs(variant, dummy, dummy["rgb"]), seed=seed, trainable=True)
+
+    store = DeviceFrameStore(*train_split(seed), img_size=S, device="cpu",
+                             flavor="rgbd" if variant.startswith("rgbd") else "rgb")
+    meta = store.meta_batch(np.array([5, 0, 11, 2]), np.random.default_rng(seed + 1))
+    batch = tloop.expand_device_batch(
+        store.rgb_frames, store.depth_frames,
+        {k: torch.from_numpy(v) for k, v in meta.items()}, S, TRAIN_HW)
+    batch = {k: v.numpy() for k, v in batch.items()}
+
+    to_np = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)  # noqa: E731
+    f64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)  # noqa: E731
+    with jax.enable_x64(True), nn.intercept_methods(no_dropout_interceptor), \
+            mock.patch.object(jloop, "train_augment",
+                              lambda key, rgb, cfg: j_eval_preprocess(rgb)):
+        jmodel = JPoseNet(JPoseNetConfig(variant=variant, img_size=S, dtype=jnp.float64,
+                                         **flags))
+        jcfg = jloop.TrainConfig(variant=variant, img_size=S, batch_size=B, **flags)
+        tx = grad_capture_tx()
+        params = f64(variables["params"])
+        jstate = jloop.TrainState(params=params, batch_stats=f64(variables["batch_stats"]),
+                                  opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
+        jstep = jloop.make_train_step(jmodel, tx, jcfg)
+        new_jstate, jmetrics = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+                                     jax.random.key(seed))
+        jax_out = {
+            "loss": float(jmetrics["loss"]), "grad_norm": float(jmetrics["grad_norm"]),
+            "grads": {k: v.double() for k, v in posenet_from_jax(
+                {"params": to_np(new_jstate.opt_state["g"])}).items()},
+            "batch_stats": {k: v.double() for k, v in posenet_from_jax(
+                {"params": {}, "batch_stats": to_np(new_jstate.batch_stats)}).items()},
+        }
+
+    tcfg = tloop.TrainConfig(variant=variant, img_size=S, batch_size=B, grad_clip=1e9, **flags)
+    runs = {}
+    with mock.patch.object(tloop, "train_augment", lambda g, rgb, cfg: eval_preprocess(rgb)):
+        step = tloop.make_train_step(tcfg)
+        for dtype in (torch.float32, torch.float64):
+            model = PoseNet(PoseNetConfig(variant=variant, img_size=S, **flags))
+            model.load_state_dict(posenet_from_jax(variables), strict=True)
+            state = tloop.create_train_state(tcfg, model=disable_dropout(model).to(dtype),
+                                             device="cpu")
+            with torch.backends.mkldnn.flags(enabled=False):
+                runs[dtype] = step(state, batch, torch.Generator().manual_seed(seed))
+    return jax_out, runs, variables, batch
+
+
+# Per-leaf gradient bounds against the float64 JAX step, by the port's
+# dtype: (relative L2 of a leaf, |g| / global norm of a leaf whose
+# reference is zero). float64 holds the 1e-3 statement. f32 leaves that
+# are remainders of cancelling sums (BN biases and scales deep in a tower)
+# read up to 2.1e-2 (rgbd, rgb_backbone.layer2_3.bn3.bias; rgb 5.7e-3,
+# rgb_geometric 1.4e-2, rgbd_geometric 7.6e-5) and zero leaves up to 2.1e-9;
+# a wrong leaf reads far above: BN epsilon 1e-4 for 1e-5 gives 0.17.
+LEAF_BOUNDS = {"float64": (1e-3, 1e-9), "float32": (5e-2, 1e-7)}
+
+
+def assert_train_step_parity(jax_out, runs):
+    """The one-step tolerances, for the port's f32 and float64 runs: loss
+    within 1e-5 max(1, |loss|); gradient global norm within 1e-4 relative;
+    each BN running mean and variance within 1e-4 of its largest
+    magnitude; and each gradient leaf within LEAF_BOUNDS of its dtype
+    (one_train_step_both says why f32 cannot hold 1e-3). A leaf whose
+    reference gradient is zero (below 1e-9 of the global norm: the bias of
+    a dense layer that train-mode BN follows, whose shift the batch mean
+    removes) must stay near zero too. Returns the worst relative leaf
+    error of each run, by dtype (the readings LEAF_BOUNDS cites)."""
+    import torch
+
+    want_gn = jax_out["grad_norm"]
+    worst = {}
+    for dtype, (state, metrics) in runs.items():
+        loss = float(metrics["loss"])
+        assert abs(loss - jax_out["loss"]) <= 1e-5 * max(1.0, abs(jax_out["loss"])), \
+            (dtype, loss, jax_out["loss"])
+        gn = float(metrics["grad_norm"])
+        assert abs(gn - want_gn) <= 1e-4 * want_gn, (dtype, gn, want_gn)
+        buffers = dict(state.model.named_buffers())
+        stats = {k: v for k, v in jax_out["batch_stats"].items() if "running_" in k}
+        assert stats
+        for k, want in stats.items():
+            err = float((buffers[k].double() - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), f"{dtype} {k}: max err {err:.3g}"
+        params = dict(state.model.named_parameters())
+        assert set(params) == set(jax_out["grads"])
+        rel_bound, zero_bound = LEAF_BOUNDS[str(dtype).removeprefix("torch.")]
+        worst[dtype] = 0.0
+        for k, want in jax_out["grads"].items():
+            got = params[k].grad.detach().double()
+            ref, err = float(want.norm()), float((got - want).norm())
+            if ref < 1e-9 * want_gn:
+                assert float(got.norm()) <= zero_bound * want_gn, \
+                    f"{dtype} {k}: |g| {float(got.norm()):.3g}, 0 expected"
+                continue
+            worst[dtype] = max(worst[dtype], err / ref)
+            assert err <= rel_bound * ref, \
+                f"{dtype} {k}: gradient rel L2 err {err / ref:.3g} (|g| {ref:.3g})"
+    return worst
+
+
+def eval_step_both(variant: str, variables, batch):
+    """make_eval_step of both packages, f32, on the same variables and
+    batch (one_train_step_both's), over 3 seeded objects of 50 points with
+    the last row of the batch padding (valid False). Returns (jax metrics,
+    port metrics) as numpy."""
+    import types
+
+    import jax.numpy as jnp
+    import torch
+
+    from pose6d_tpu.models.posenet import PoseNet as JPoseNet, PoseNetConfig as JPoseNetConfig
+    from pose6d_tpu.train import loop as jloop
+    from pose6d_tpu_torch.convert import posenet_from_jax
+    from pose6d_tpu_torch.losses.add import ObjectModels
+    from pose6d_tpu_torch.models.posenet import PoseNet, PoseNetConfig
+    from pose6d_tpu_torch.train import loop as tloop
+
+    rng = np.random.default_rng(7)
+    n_obj, P = 3, 50
+    models = {"points": rng.normal(0, 0.04, (n_obj, P, 3)).astype(np.float32),
+              "diameters": np.array([0.1, 0.12, 0.09], np.float32),
+              "symmetric": np.array([False, True, False]),
+              "present": np.ones(n_obj, bool),
+              "num_valid": np.array([P, 40, P], np.int32)}
+    batch = dict(batch, valid=np.array([True] * (len(batch["idx"]) - 1) + [False]))
+    S = batch["rgb"].shape[1]
+    jstep = jloop.make_eval_step(JPoseNet(JPoseNetConfig(variant=variant, img_size=S)),
+                                 jloop.TrainConfig(variant=variant, img_size=S),
+                                 types.SimpleNamespace(**{k: jnp.asarray(v)
+                                                          for k, v in models.items()}))
+    jstate = jloop.TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
+                              opt_state=(), step=jnp.zeros((), jnp.int32))
+    want = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+
+    model = PoseNet(PoseNetConfig(variant=variant, img_size=S))
+    model.load_state_dict(posenet_from_jax(variables), strict=True)
+    cfg = tloop.TrainConfig(variant=variant, img_size=S)
+    state = tloop.create_train_state(cfg, model=model, device="cpu")
+    tstep = tloop.make_eval_step(cfg, ObjectModels(*(torch.from_numpy(models[k]) for k in (
+        "points", "diameters", "symmetric", "present", "num_valid"))))
+    got = tstep(state, batch)
+    return ({k: np.asarray(v) for k, v in want.items()},
+            {k: v.numpy() for k, v in got.items()})
+
+
+def assert_eval_parity(want, got):
+    """Predictions within 1e-4 (eval-mode f32 forward, as the serving
+    tests hold it), ADD means within 1e-2 mm, the 0.1d accuracies and the
+    valid count equal, the loss within 1e-5 max(1, |loss|)."""
+    assert set(got) == set(want)
+    for k in ("pred_rot", "pred_trans"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4, err_msg=k)
+    for k in ("add_mean", "add_s_mean"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-2, err_msg=k)
+    for k in ("add_01d_acc", "add_01d_acc_deploy", "count"):
+        assert float(got[k]) == float(want[k]), k
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * max(1.0, abs(float(want["loss"])))
