@@ -9,7 +9,10 @@ Phases, each printed on its own line with its seconds:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels (csrc/*.cu) with one nvcc call into
-     pose6d_tpu_torch/_build/;
+     pose6d_tpu_torch/_build/; prints ptxas's registers and spills of the
+     stage kernels (-Xptxas -v) and the count of tensor-core HGMMA
+     instructions in each bf16 stage kernel (cuobjdump -sass), which must
+     not be 0;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the serving path's shapes (batch 8), in f32 with a tight tolerance and
      in bf16 against the f32 plain version with a bf16 envelope; then its
@@ -18,9 +21,12 @@ Phases, each printed on its own line with its seconds:
      the card's bound for the work. The stage kernel runs stages 1-4 on the
      rgbd_geometric tower's own activations, and fused_layer1 (the same
      kernel at stage 1 behind the rgbd path's own launch count) must equal
-     fused_stage at stage 1 bit for bit; the frame gather moves B = 32 rows
-     of the train phase's resident store (256 frames at 640x480, RGB and
-     depth words) bit for bit equal to its plain version;
+     fused_stage at stage 1 bit for bit; each stage prints its bf16 plan
+     (tile N, tiles and K splits per GEMM) and two bf16 launches of it must
+     be equal bit for bit (split-K reduces in split order); the frame
+     gather moves B = 32 rows of the train phase's resident store (256
+     frames at 640x480, RGB and depth words) bit for bit equal to its plain
+     version;
   4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
      frames, two ResNet50 towers at 224, attention dim 2048) with seeded
      weights, folded bf16 towers with the stem and layer1 kernels, over 3
@@ -61,6 +67,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -159,6 +168,63 @@ def compare_bf16(got, want_f32, what):
 # ----------------------------------------------------------------- phases
 
 
+_STAGE_KERNEL = re.compile(r"(wgmma_gemm_kernel|gemm_kernel)I(?:Li(\d+)E)?Lb(\d)E")
+
+
+def _stage_kernel_name(mangled: str):
+    """'wgmma_gemm_kernel<bn=128,conv3x3=1>' (stage_wgmma.cu, bf16) or
+    'gemm_kernel<conv3x3=0>' (stage.cu, f32) from a mangled name, else None."""
+    m = _STAGE_KERNEL.search(mangled)
+    if m is None:
+        return None
+    return f"{m.group(1)}<{'bn=' + m.group(2) + ',' if m.group(2) else ''}conv3x3={m.group(3)}>"
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """Registers, spills and injected waits of the stage kernels from the
+    build's -Xptxas -v output."""
+    rows, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = _stage_kernel_name(entry.group(1))
+            continue
+        waits = re.search(r"\(C7517\).* in function '(\S+)'", line)
+        if waits and _stage_kernel_name(waits.group(1)):
+            rows.setdefault(_stage_kernel_name(waits.group(1)), {})["waits"] = "C7517 wait injected"
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            rows.setdefault(name, {})["spills"] = f"spills {spill.group(1)}/{spill.group(2)} B"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            rows.setdefault(name, {})["regs"] = f"{regs.group(1)} registers"
+    return [f"{k}: " + ", ".join(v[f] for f in ("regs", "spills", "waits") if f in v)
+            for k, v in sorted(rows.items())]
+
+
+def hgmma_counts(lib_path: str) -> dict | None:
+    """HGMMA (wgmma) instructions per bf16 stage kernel in the built
+    library's SASS; None where cuobjdump is not there."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = _stage_kernel_name(fn.group(1))
+            if name and name.startswith("wgmma"):
+                counts[name] = 0
+            continue
+        if name in counts and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def stage_macs(stage: int) -> int:
     """Multiply-adds of one image through ResNet50 stage `stage` at 224."""
     from pose6d_tpu_torch.ops.fused_block import STAGE_CFGS
@@ -220,6 +286,12 @@ def stage_rows(geo_pipe, rgb):
         oracle = fb.reference_stage(x.float(), tuple(t.float() for t in wbf), stage)
         out = fb.fused_stage(x, wbf, stage)
         mean_e, max_e = compare_bf16(out, oracle, what)
+        check(torch.equal(fb.fused_stage(x, wbf, stage), out),
+              f"{what}: two bf16 launches on the same input differ")
+        log(f"  s{stage} plan at batch {x.shape[0]} (GEMM: M x N x K, tile N, tiles x splits): "
+            + ", ".join(f"{g.name} {g.m}x{g.n}x{g.k1}{'+' + str(g.k2) if g.k2 else ''} "
+                        f"bn{g.bn} {g.tiles}x{g.splits}"
+                        for g in fb.stage_plan(stage, x.shape[0])))
         if stage == 1:
             for xs, ws in ((x.float(), w32), (x, wbf)):
                 check(torch.equal(fb.fused_stage(xs, ws, 1), fb.fused_layer1(xs, ws)),
@@ -229,7 +301,7 @@ def stage_rows(geo_pipe, rgb):
         b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * stage_macs(stage), bf16)
         rows.append({
             "name": f"fused_stage_s{stage}", "route": "cuda",
-            "source": "pose6d_tpu_torch/csrc/stage.cu",
+            "source": "pose6d_tpu_torch/csrc/stage_wgmma.cu",
             "replaces": "pose6d_tpu/ops/pallas_block.py:310", "max_abs_err": err,
             "ms": cuda_ms(lambda: fb.fused_stage(x, wbf, stage)),
             "plain_ms": cuda_ms(lambda: fb.reference_stage(x, wbf, stage)),
@@ -320,13 +392,15 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
                       "fused_layer1")
     oracle = fb.reference_layer1(x.float(), tuple(t.float() for t in wbf))
     mean_e, max_e = compare_bf16(fb.fused_layer1(x, wbf), oracle, "fused_layer1")
+    check(torch.equal(fb.fused_layer1(x, wbf), fb.fused_layer1(x, wbf)),
+          "fused_layer1: two bf16 launches on the same input differ")
     sync(x.device)
     x_nchw = x.permute(0, 3, 1, 2)
     lib_tree = library_tree(l1_tree, 1)
     out = fb.fused_layer1(x, wbf)
     b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * stage_macs(1), bf16)
     rows.append({
-        "name": "fused_layer1", "route": "cuda", "source": "pose6d_tpu_torch/csrc/stage.cu",
+        "name": "fused_layer1", "route": "cuda", "source": "pose6d_tpu_torch/csrc/stage_wgmma.cu",
         "replaces": "pose6d_tpu/ops/pallas_block.py:187", "max_abs_err": err,
         "ms": cuda_ms(lambda: fb.fused_layer1(x, wbf)),
         "plain_ms": cuda_ms(lambda: fb.reference_layer1(x, wbf)),
@@ -780,6 +854,20 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = _build.build()
     _build.lib()
+    if os.path.exists(_build.LOG_PATH):
+        with open(_build.LOG_PATH) as f:
+            for line in ptxas_summary(f.read()):
+                log(f"  ptxas: {line}")
+    else:
+        log("  ptxas: not read (the library was built elsewhere, no nvcc.log)")
+    hgmma = hgmma_counts(_build.LIB_PATH)
+    if hgmma is None:
+        log("  sass: not read (no cuobjdump)")
+    else:
+        log("  sass HGMMA instructions: " + ", ".join(f"{k} {v}" for k, v in sorted(hgmma.items())))
+        check(len(hgmma) == 4 and all(hgmma.values()),
+              f"the bf16 stage kernels (tile N 64 and 128, 1x1 and 3x3) lack tensor-core "
+              f"instructions: {hgmma}")
     log(f"[phase 2 build] nvcc {'built ' + _build.LIB_PATH if secs else 'library up to date'} "
         f"in {secs:.1f}s ({time.perf_counter() - t0:.1f}s)")
 

@@ -3,8 +3,10 @@
 One nvcc call compiles every source into a shared library with a plain C
 interface, `_build/libpose6d_kernels.so`, loaded with ctypes. No source
 includes PyTorch's headers, so the build takes seconds rather than minutes.
-The library is rebuilt when it is missing or older than any source, which
-happens at the first kernel launch of a process (never at import time).
+The library is rebuilt when it is missing or older than any source or
+header, which happens at the first kernel launch of a process (never at
+import time). nvcc runs with `-Xptxas -v`: its output (each kernel's
+registers, shared memory and spills) goes to `_build/nvcc.log`.
 
 Every C entry point takes device pointers and the CUDA stream as `void*`,
 launches on that stream without synchronising, allocates nothing, and returns
@@ -33,6 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libpose6d_kernels.so")
+LOG_PATH = os.path.join(BUILD_DIR, "nvcc.log")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 launch_counts: collections.Counter = collections.Counter()
@@ -46,9 +49,14 @@ _SIGNATURES = {
     # x, w, b, out, B, C, is_bf16, stream
     "pose6d_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, weights (array of n_weights pointers), n_weights, n_blocks, t1, t2,
-    # ya, yb, out, B, h, w, stride, cin, cmid, cout, is_bf16, stream
+    # ya, yb, out, B, h, w, stride, cin, cmid, cout, is_bf16, plan (array of
+    # (tile N, splits) per GEMM), n_plan, ws, tickets, stream
     "pose6d_stage_forward": [_P, ctypes.POINTER(_P), _I, _I, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
+                             _P, _P, _P],
+    # a1, w1, a2, w2, bias, bias2, res, out, ws, tickets, M, N, K1, K2, h, w,
+    # ho, wo, stride, conv3x3, tile N, splits, stream
+    "pose6d_gemm_bf16": [_P] * 10 + [_I] * 12 + [_P],
     # pred, gt, out, B, P, stream
     "pose6d_addmin_forward": [_P, _P, _P, _I, _I, _P],
     # src, idx, out, N, B, R (32-bit words per row), stream
@@ -58,6 +66,10 @@ _SIGNATURES = {
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -74,7 +86,7 @@ def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in sources())
+    return any(os.path.getmtime(s) > built for s in sources() + headers())
 
 
 def build() -> float:
@@ -84,10 +96,14 @@ def build() -> float:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
            "-Xcompiler", "-fPIC", "-o", tmp, *sources()]
     t0 = time.perf_counter()
-    subprocess.run(cmd, check=True)
+    run = subprocess.run(cmd, capture_output=True, text=True)
+    with open(LOG_PATH, "w") as f:
+        f.write(run.stdout + run.stderr)
+    if run.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({run.returncode}):\n{run.stdout}{run.stderr}")
     os.replace(tmp, LIB_PATH)  # atomic: concurrent builders never see half
     return time.perf_counter() - t0
 

@@ -4,7 +4,9 @@ fused_stage).
 
 Each wrapper launches its hand-written CUDA kernel (csrc/stem.cu, or
 csrc/stage.cu for fused_stage and for fused_layer1, which is fused_stage at
-stage 1 behind its own launch count) for a CUDA tensor and runs its plain
+stage 1 behind its own launch count: f32 on CUDA-core FMAs, bf16 on the
+tensor cores through csrc/stage_wgmma.cu, tiled and split as `stage_plan`
+says) for a CUDA tensor and runs its plain
 PyTorch version, `reference_stem` / `reference_layer1` /
 `reference_stage`, for a CPU tensor; any other device raises. Kernels and plain versions take the
 same packed weights and keep the TPU kernels' numeric contract: f32
@@ -21,6 +23,8 @@ Layouts are NHWC like the JAX package: stem [B,224,224,C] -> [B,56,56,64]
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +42,91 @@ STAGE_CFGS = {
     3: ("layer3", 6, 2, 512, 256, 1024, 28, 28),
     4: ("layer4", 3, 2, 1024, 512, 2048, 14, 14),
 }
+
+
+# The bf16 stage kernel (csrc/stage_wgmma.cu): output rows per tile, K per
+# step, and the H100's SM count, which a GEMM's blocks should fill
+TILE_M = 128
+STEP_K = 64
+NUM_SMS = 132
+MIN_SPLIT_STEPS = 8  # K steps a split should keep before K is cut finer
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One GEMM of a stage on the bf16 kernel: out [m, n] from A1 [m, k1]
+    W1 [k1, n] plus, for block 0's conv3, the shortcut A2 [m, k2] W2 [k2, n]
+    in the same accumulator; conv3x3: A1 is the 3x3 patch matrix of a
+    [.., k1 / 9]-channel map. Tiles of TILE_M x bn outputs; the k1 + k2 K
+    steps of STEP_K (A1's first) split into `splits` contiguous ranges, one
+    block each, reduced in split order through an f32 workspace."""
+
+    name: str
+    m: int
+    n: int
+    k1: int
+    k2: int
+    conv3x3: bool
+    bn: int
+    splits: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.m // TILE_M) * (self.n // self.bn)
+
+    @property
+    def k_steps(self) -> int:
+        return (self.k1 + self.k2) // STEP_K
+
+    def split_steps(self, split: int) -> range:
+        """The K steps of one split: the kernel's partition (blockIdx.z)."""
+        nk = self.k_steps
+        return range(split * nk // self.splits, (split + 1) * nk // self.splits)
+
+    @property
+    def workspace_bytes(self) -> int:
+        """The f32 partial sums [splits, m, n]; none without a split."""
+        return 4 * self.splits * self.m * self.n if self.splits > 1 else 0
+
+
+def _plan_gemm(name: str, m: int, n: int, k1: int, k2: int = 0, conv3x3: bool = False):
+    m_tiles = -(-m // TILE_M)
+    bn = 128 if n % 128 == 0 and m_tiles * (n // 128) >= NUM_SMS else 64
+    tiles = m_tiles * (n // bn)
+    steps = (k1 + k2) // STEP_K
+    splits = 1
+    if tiles < NUM_SMS:
+        splits = min(steps, max(2, min(NUM_SMS // tiles, steps // MIN_SPLIT_STEPS)))
+    return GemmPlan(name, m, n, k1, k2, conv3x3, bn, splits)
+
+
+@functools.lru_cache(maxsize=64)
+def stage_plan(stage: int, batch: int) -> tuple:
+    """The bf16 kernel's GEMMs of `stage` at `batch`, in launch order (per
+    block conv1, conv2, conv3 with its shortcut), each with its tile N and
+    K splits. Two blocks share an SM at either tile width, so the wide tile
+    (128) is taken where its tiles still give every SM one, else 64. A
+    GEMM with fewer tiles than SMs splits K: as many splits as give each
+    block an SM of its own, at least 2, and no finer than MIN_SPLIT_STEPS
+    steps a split unless 2 are needed (python -m
+    pose6d_tpu_torch.ops.stage_sweep times the alternatives)."""
+    _, n_blocks, stride, cin, cmid, cout, h, w = STAGE_CFGS[stage]
+    m_in, m_out = batch * h * w, batch * (h // stride) * (w // stride)
+    plan = []
+    for j in range(n_blocks):
+        plan += [_plan_gemm(f"b{j}.conv1", m_in if j == 0 else m_out, cmid, cin if j == 0 else cout),
+                 _plan_gemm(f"b{j}.conv2", m_out, cmid, 9 * cmid, conv3x3=True),
+                 _plan_gemm(f"b{j}.conv3", m_out, cout, cmid, cin if j == 0 else 0)]
+    return tuple(plan)
+
+
+def stage_workspace(plan) -> tuple[int, int]:
+    """What the wrapper allocates for a plan: the f32 workspace's bytes (the
+    largest split GEMM's) and the number of int32 tickets (its most tiles);
+    the stage's GEMMs run one after another and share both."""
+    split = [g for g in plan if g.splits > 1]
+    return (max((g.workspace_bytes for g in split), default=0),
+            max((g.tiles for g in split), default=0))
 
 
 def pack_stem_weights(folded: dict, dtype=torch.bfloat16):
@@ -175,11 +264,14 @@ def _launch_stem(x, w, b, out, stream: int) -> None:
 def _launch_stage(x, weights, stage: int, scratch, out, stream: int) -> None:
     _, n_blocks, stride, cin, cmid, cout, h, w = STAGE_CFGS[stage]
     ptrs = (ctypes.c_void_p * len(weights))(*(t.data_ptr() for t in weights))
-    t1, t2, ya, yb = scratch
+    t1, t2, ya, yb, ws, tickets = scratch
+    bf16 = _dtype_flag(x)
+    plan = stage_plan(stage, x.shape[0]) if bf16 else ()
+    flat = (ctypes.c_int * (2 * len(plan)))(*(v for g in plan for v in (g.bn, g.splits)))
     code = _build.lib().pose6d_stage_forward(
         x.data_ptr(), ptrs, len(weights), n_blocks, t1.data_ptr(), t2.data_ptr(),
         ya.data_ptr(), yb.data_ptr(), out.data_ptr(), x.shape[0], h, w, stride,
-        cin, cmid, cout, _dtype_flag(x), stream)
+        cin, cmid, cout, bf16, flat, len(plan), ws.data_ptr(), tickets.data_ptr(), stream)
     _build.check(code, f"fused_stage(stage={stage})")
 
 
@@ -223,15 +315,21 @@ def _check_stage(fn: str, x: torch.Tensor, weights, stage: int) -> None:
 def _stage_buffers(x: torch.Tensor, stage: int):
     """The kernel's scratch (t1 [B*h*w, cmid] for block 0's conv1 at the
     input resolution, t2 [B*ho*wo, cmid], two [B*ho*wo, cout] ping-pong
-    maps) and its output [B,ho,wo,cout]."""
+    maps; in bf16 also the plan's f32 split-K workspace and its zeroed
+    int32 tickets, one per output tile, made for this call so that no two
+    calls in flight share them) and its output [B,ho,wo,cout]."""
     _, _, stride, _, cmid, cout, h, w = STAGE_CFGS[stage]
     B, ho, wo = x.shape[0], h // stride, w // stride
 
     def empty(*shape):
         return torch.empty(shape, dtype=x.dtype, device=x.device)
 
+    ws_bytes, n_tickets = (stage_workspace(stage_plan(stage, B)) if x.dtype == torch.bfloat16
+                           else (0, 0))
     scratch = (empty(B * h * w, cmid), empty(B * ho * wo, cmid),
-               empty(B * ho * wo, cout), empty(B * ho * wo, cout))
+               empty(B * ho * wo, cout), empty(B * ho * wo, cout),
+               torch.empty(ws_bytes // 4, dtype=torch.float32, device=x.device),
+               torch.zeros(n_tickets, dtype=torch.int32, device=x.device))
     return scratch, empty(B, ho, wo, cout)
 
 

@@ -3,9 +3,13 @@ without one). Run on a machine with a CUDA card and nvcc:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
-Kernels: the fused stem, layer1, the parametric stage (stages 1-4, and
-stage 1 bit for bit equal to layer1), the ADD-S nearest-point search and
-the frame-row gather (bit for bit equal to its plain version). Beside
+Kernels: the fused stem, layer1, the parametric stage (stages 1-4 at
+batches 1, 2, 3, 8 and 32, stage 1 bit for bit equal to layer1, and two
+bf16 launches bit for bit equal under split-K), the bf16 wgmma GEMM alone
+in each geometry a stage gives it (dense 1x1, 3x3 at stride 1 and 2, the
+conv3 + shortcut pair, the identity residual; with and without split-K),
+the ADD-S nearest-point search and the frame-row gather (bit for bit
+equal to its plain version). Beside
 them: each kernel launches on its input's card when another card is
 current (skipped below two cards), one device-preprocess train step of
 each PoseNet variant is finite on the card, and the rgbd train epoch
@@ -95,10 +99,12 @@ def _stage_weights(stage, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("stage,batch", [(1, 2), (2, 2), (3, 2), (4, 2), (2, 1), (4, 1)])
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("stage", [1, 2, 3, 4])
 def test_stage_kernel(cuda, stage, batch, dtype):
-    """Every stage, including M = B*ho*wo not a multiple of the 64-row tile
-    (stage 2 at B=1: 784 rows; stage 4: 49 rows per image)."""
+    """Every stage, including M = B*ho*wo not a multiple of the 64- or
+    128-row tile (stage 2 at B=1: 784 rows; stage 4: 49 rows per image;
+    batch 3), and the batches whose plans split K (stage_plan)."""
     _, _, _, cin, _, _, h, w = fb.STAGE_CFGS[stage]
     wts = _stage_weights(stage, dtype)
     x = torch.randn(batch, h, w, cin, generator=torch.Generator().manual_seed(stage)).to(dtype)
@@ -119,6 +125,105 @@ def test_stage1_equals_layer1_bit_for_bit(cuda, dtype):
     b = fb.fused_layer1(x, wts)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 4])
+def test_stage_kernel_is_deterministic(cuda, stage):
+    """Split-K sums its partials in split order: two bf16 launches on the
+    same input are equal bit for bit (batch 8, where stages 2-4 split)."""
+    _, _, _, cin, _, _, h, w = fb.STAGE_CFGS[stage]
+    wts = _to(_stage_weights(stage, torch.bfloat16, seed=5), cuda)
+    x = torch.randn(8, h, w, cin, generator=torch.Generator().manual_seed(6))
+    x = x.to(torch.bfloat16).to(cuda)
+    a = fb.fused_stage(x, wts, stage)
+    b = fb.fused_stage(x, wts, stage)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _patches(x, stride):
+    """The 3x3 patch matrix of an NHWC map, padding 1, in (ky, kx, c) column
+    order: [B*ho*wo, 9*C]."""
+    B, h, w, C = x.shape
+    cols = torch.nn.functional.unfold(x.permute(0, 3, 1, 2), 3, padding=1, stride=stride)
+    return cols.reshape(B, C, 9, -1).permute(0, 3, 2, 1).reshape(-1, 9 * C)
+
+
+# name: (B, h, w, C of A1's map or K1, stride, N, K2, residual, tile N): one
+# GEMM of each geometry a stage launches, with ragged M against 128-row
+# tiles and more than one tile along N
+GEMM_CASES = {
+    "dense_1x1": (3, 10, 10, 256, 1, 128, 0, False, 128),
+    "dense_1x1_bn64": (3, 10, 10, 256, 1, 128, 0, False, 64),
+    "dense_1x1_n64": (2, 9, 9, 64, 1, 64, 0, False, 64),
+    "dense_1x1_residual": (2, 12, 12, 128, 1, 256, 0, True, 128),
+    "conv3x3_s1": (2, 14, 14, 64, 1, 128, 0, False, 64),
+    "conv3x3_s2": (3, 14, 14, 128, 2, 128, 0, False, 128),
+    "conv3_shortcut_s2": (2, 14, 14, 128, 2, 256, 64, False, 128),
+    "conv3_shortcut_s1": (2, 10, 10, 64, 1, 256, 64, False, 64),
+}
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("case", sorted(GEMM_CASES))
+def test_wgmma_gemm_geometry(cuda, case, splits):
+    """The bf16 GEMM kernel alone (pose6d_gemm_bf16) against the same GEMM
+    in f32 on bf16 inputs, within the bf16 envelope: the 3x3 taps and
+    padding, the stride-2 gather, the shortcut's second (A, W) pair at its
+    own K offset, ragged M, tile N 64 and 128, and split-K."""
+    B, h, w, C, stride, N, K2, residual, bn = GEMM_CASES[case]
+    g = torch.Generator().manual_seed(11)
+    conv3x3 = case.startswith("conv3x3")
+    ho, wo = h // stride, w // stride
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(bf).to(cuda)
+
+    if conv3x3:
+        a1 = rand(B, h, w, C)
+        K1, M = 9 * C, B * ho * wo
+        a1_mat = _patches(a1.float(), stride)
+    elif K2:
+        M, K1 = B * ho * wo, C
+        a1 = rand(M, K1)
+        a1_mat = a1.float()
+    else:
+        M, K1 = B * h * w, C
+        a1 = rand(M, K1)
+        a1_mat = a1.float()
+    w1 = rand(K1, N, scale=K1 ** -0.5)
+    bias = torch.randn(N, generator=g).to(cuda)
+    want = a1_mat @ w1.float() + bias
+    a2 = w2 = bias2 = res = None
+    if K2:
+        a2 = rand(B, h, w, K2)
+        w2 = rand(K2, N, scale=K2 ** -0.5)
+        bias2 = torch.randn(N, generator=g).to(cuda)
+        want = want + a2.float()[:, ::stride, ::stride].reshape(M, K2) @ w2.float() + bias2
+    if residual:
+        res = rand(M, N)
+        want = want + res.float()
+    want = want.relu()
+    k_steps = (K1 + K2) // 64
+    splits = min(splits, k_steps)
+    tiles = -(-M // 128) * (N // bn)
+    out = torch.empty(M, N, dtype=bf, device=cuda)
+    ws = torch.empty(splits * M * N, dtype=torch.float32, device=cuda)
+    tickets = torch.zeros(tiles, dtype=torch.int32, device=cuda)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    code = _build.lib().pose6d_gemm_bf16(
+        ptr(a1), ptr(w1), ptr(a2), ptr(w2), ptr(bias), ptr(bias2), ptr(res), ptr(out),
+        ptr(ws), ptr(tickets), M, N, K1, K2, h, w, ho, wo, stride, int(conv3x3), bn, splits,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "pose6d_gemm_bf16")
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs()
+    worst = int(err.argmax())
+    assert err.max().item() < 0.02 * max(1.0, want.abs().max().item()), (
+        f"max err {err.max().item():.4g} at row {worst // N} col {worst % N}; "
+        f"{(err > 0.05).float().mean().item():.3f} of outputs off")
+    assert torch.equal(tickets, torch.zeros_like(tickets))  # reset by each tile's last block
 
 
 @pytest.mark.parametrize("P", [500, 129, 1])
