@@ -10,23 +10,28 @@ Phases, each printed on its own line with its seconds:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the CUDA kernels (csrc/*.cu) with one nvcc call into
      pose6d_tpu_torch/_build/; prints ptxas's registers and spills of the
-     stage kernels (-Xptxas -v) and the count of tensor-core HGMMA
-     instructions in each bf16 stage kernel (cuobjdump -sass), which must
-     not be 0;
+     stage and bf16 stem kernels (-Xptxas -v) and the count of tensor-core
+     HGMMA instructions in each bf16 stage and stem kernel (cuobjdump
+     -sass), which must not be 0;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the serving path's shapes (batch 8), in f32 with a tight tolerance and
      in bf16 against the f32 plain version with a bf16 envelope; then its
      time (CUDA events, median of 20 after warm-up) beside the plain
      version's, one PyTorch library computation of the same function and
-     the card's bound for the work. The stage kernel runs stages 1-4 on the
+     the card's bound for the work. Two bf16 launches of the stem (C=3 and
+     C=1) must be equal bit for bit. The stage kernel runs stages 1-4 on the
      rgbd_geometric tower's own activations, and fused_layer1 (the same
      kernel at stage 1 behind the rgbd path's own launch count) must equal
      fused_stage at stage 1 bit for bit; each stage prints its bf16 plan
      (tile N, tiles and K splits per GEMM) and two bf16 launches of it must
      be equal bit for bit (split-K reduces in split order); the frame
-     gather moves B = 32 rows of the train phase's resident store (256
-     frames at 640x480, RGB and depth words) bit for bit equal to its plain
-     version;
+     gather moves B = 1, 3 and 32 rows of the train phase's resident store
+     (256 frames at 640x480, RGB and depth words; repeated indices and
+     indices outside [0, N) that clamp) bit for bit equal to its plain
+     version, and is timed at B = 32 with both its copy engines (the
+     vector loop and bulk copies, `engine` and `alt_ms` in the JSON line),
+     each run on the next batch of a permutation of the frames, as a train
+     epoch draws them (its source not in L2);
   4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
      frames, two ResNet50 towers at 224, attention dim 2048) with seeded
      weights, folded bf16 towers with the stem and layer1 kernels, over 3
@@ -66,6 +71,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -169,11 +175,17 @@ def compare_bf16(got, want_f32, what):
 
 
 _STAGE_KERNEL = re.compile(r"(wgmma_gemm_kernel|gemm_kernel)I(?:Li(\d+)E)?Lb(\d)E")
+_STEM_KERNEL = re.compile(r"stem_tc_kernelILi(\d)E")
+TENSOR_CORE_KERNELS = ("wgmma", "stem_tc")  # name prefixes of the kernels that must hold HGMMA
 
 
 def _stage_kernel_name(mangled: str):
-    """'wgmma_gemm_kernel<bn=128,conv3x3=1>' (stage_wgmma.cu, bf16) or
-    'gemm_kernel<conv3x3=0>' (stage.cu, f32) from a mangled name, else None."""
+    """'wgmma_gemm_kernel<bn=128,conv3x3=1>' (stage_wgmma.cu, bf16),
+    'gemm_kernel<conv3x3=0>' (stage.cu, f32) or 'stem_tc_kernel<C=3>'
+    (stem_tc.cu, bf16) from a mangled name, else None."""
+    m = _STEM_KERNEL.search(mangled)
+    if m is not None:
+        return f"stem_tc_kernel<C={m.group(1)}>"
     m = _STAGE_KERNEL.search(mangled)
     if m is None:
         return None
@@ -181,8 +193,8 @@ def _stage_kernel_name(mangled: str):
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """Registers, spills and injected waits of the stage kernels from the
-    build's -Xptxas -v output."""
+    """Registers, spills and injected waits of the stage and bf16 stem
+    kernels from the build's -Xptxas -v output."""
     rows, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -205,8 +217,8 @@ def ptxas_summary(log: str) -> list[str]:
 
 
 def hgmma_counts(lib_path: str) -> dict | None:
-    """HGMMA (wgmma) instructions per bf16 stage kernel in the built
-    library's SASS; None where cuobjdump is not there."""
+    """HGMMA (wgmma) instructions per bf16 stage and stem kernel in the
+    built library's SASS; None where cuobjdump is not there."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -217,7 +229,7 @@ def hgmma_counts(lib_path: str) -> dict | None:
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             name = _stage_kernel_name(fn.group(1))
-            if name and name.startswith("wgmma"):
+            if name and name.startswith(TENSOR_CORE_KERNELS):
                 counts[name] = 0
             continue
         if name in counts and "HGMMA" in line:
@@ -314,33 +326,61 @@ def stage_rows(geo_pipe, rgb):
 
 
 def gather_row(store, rng):
-    """The frame gather on the train phase's resident words at batch 32:
-    RGB and depth rows bit-equal to the plain version (index_select on the
-    int32 view), then timed beside it, beside index_select alone (the
-    library call) and beside the bytes bound (each row read and written
-    once)."""
+    """The frame gather on the train phase's resident words: RGB and depth
+    rows at batches 1, 3 and 32 (repeated indices, and indices outside
+    [0, N) that clamp) bit-equal to the plain version (index_select on the
+    int32 view of the clamped indices) with both copy engines; then at
+    batch 32 timed beside the other engine (`alt_ms`), the plain version,
+    index_select alone (the library call) and the bytes bound (each row
+    read and written once). Each timed run gathers the next of the 8
+    disjoint batches of one permutation of the 256 frames, as a train epoch
+    draws them: its source was last read 7 runs (138 MB of depth words)
+    earlier, so it is not in the 50 MB L2, as in the train step."""
     from pose6d_tpu_torch.ops import gather_frames as gf
 
     dev = store.device
-    # int32 indices, as the train path's metadata holds them
-    idx = torch.from_numpy(rng.integers(0, len(store), 32, dtype=np.int32)).to(dev)
+    n = len(store)
+
+    def alt(words, idx):  # the engine the wrapper does not take, timed only
+        out = torch.empty((idx.numel(), words.shape[1]), dtype=words.dtype, device=dev)
+        gf._launch_gather(words, idx, out, torch.cuda.current_stream(dev).cuda_stream,
+                          bulk=not gf.BULK)
+        return out
+
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(SEED)).to(torch.int32)
+    batches = [perm[i:i + 32].to(dev) for i in range(0, n - 31, 32)]
+
+    def epoch_ms(fn):
+        it = itertools.cycle(batches)
+        return cuda_ms(lambda: fn(next(it)))
+
     out = {}
     for kind, words in (("rgb", store.rgb_frames), ("depth", store.depth_frames)):
-        got = gf.gather_rows_u32(words, idx)
-        want = gf._gather_rows_plain(words, idx)
-        check(torch.equal(got, want),
-              f"gather_rows_u32 ({kind} words) differs from its plain version")
-        err = float((got.long() - want.long()).abs().max().item())
+        err = 0.0
+        for batch in (1, 3, 32):
+            # int32 indices, as the train path's metadata holds them
+            picks = rng.integers(0, n, batch)
+            picks[::3] = picks[0]  # repeats
+            picks[1::4] = np.resize([-5, n, 10**6, -1], len(picks[1::4]))  # clamp to 0, n - 1
+            idx = torch.from_numpy(picks.astype(np.int32)).to(dev)
+            want = gf._gather_rows_plain(words, idx)
+            for engine, got in (("kernel", gf.gather_rows_u32(words, idx)),
+                                ("other engine", alt(words, idx))):
+                check(torch.equal(got, want), f"gather_rows_u32 ({kind} words, batch {batch}, "
+                                              f"{engine}) differs from its plain version")
+                err = max(err, float((got.long() - want.long()).abs().max().item()))
         sync(dev)
-        b_ms, b_by = bound_ms(2.0 * idx.numel() * words.shape[1] * 4, 0.0, torch.float32)
+        b_ms, b_by = bound_ms(2.0 * 32 * words.shape[1] * 4, 0.0, torch.float32)
         out[kind] = {"max_abs_err": err,
-                     "ms": cuda_ms(lambda: gf.gather_rows_u32(words, idx)),
-                     "plain_ms": cuda_ms(lambda: gf._gather_rows_plain(words, idx)),
-                     "library_ms": cuda_ms(lambda: words.index_select(0, idx)),
+                     "ms": epoch_ms(lambda i: gf.gather_rows_u32(words, i)),
+                     "alt_ms": epoch_ms(lambda i: alt(words, i)),
+                     "plain_ms": epoch_ms(lambda i: gf._gather_rows_plain(words, i)),
+                     "library_ms": epoch_ms(lambda i: words.index_select(0, i)),
                      "bound_ms": b_ms, "bound_by": b_by}
     row = {"name": "gather_rows_u32", "route": "cuda",
            "source": "pose6d_tpu_torch/csrc/gather.cu",
-           "replaces": "pose6d_tpu/ops/gather_frames.py:60", **out["rgb"]}
+           "replaces": "pose6d_tpu/ops/gather_frames.py:60",
+           "engine": "bulk" if gf.BULK else "loop", **out["rgb"]}
     row.update({f"depth_{k}": v for k, v in out["depth"].items() if k != "bound_by"})
     row["max_abs_err"] = max(out["rgb"]["max_abs_err"], out["depth"]["max_abs_err"])
     return row
@@ -364,6 +404,8 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
                           f"fused_stem C={C}")
         oracle = fb.reference_stem(x.float(), (wbf[0].float(), wbf[1]))
         mean_e, max_e = compare_bf16(fb.fused_stem(x, wbf), oracle, f"fused_stem C={C}")
+        check(torch.equal(fb.fused_stem(x, wbf), fb.fused_stem(x, wbf)),
+              f"fused_stem C={C}: two bf16 launches on the same input differ")
         sync(x.device)
         w_lib = tree["conv1"]["w"].to(bf16).contiguous(memory_format=torch.channels_last)
         b_lib = tree["conv1"]["b"].to(bf16)
@@ -373,7 +415,7 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
         b_ms, b_by = bound_ms(nbytes(x, *wbf, out), ops, bf16)
         rows.append({
             "name": f"fused_stem_c{C}", "route": "cuda",
-            "source": "pose6d_tpu_torch/csrc/stem.cu",
+            "source": "pose6d_tpu_torch/csrc/stem_tc.cu",
             "replaces": "pose6d_tpu/ops/pallas_block.py:439",
             "max_abs_err": err,
             "ms": cuda_ms(lambda: fb.fused_stem(x, wbf)),
@@ -438,9 +480,10 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
         elif "f64_max_err" in r:
             extra = f"f64 max err {r['f64_max_err']:.3g}"
         else:
-            extra = (f"bit-equal; depth words ms {r['depth_ms']:.4f} plain_ms "
-                     f"{r['depth_plain_ms']:.4f} library_ms {r['depth_library_ms']:.4f} "
-                     f"bound_ms {r['depth_bound_ms']:.5f}")
+            extra = (f"bit-equal; {r['engine']} engine, the other's alt_ms {r['alt_ms']:.4f}; "
+                     f"depth words ms {r['depth_ms']:.4f} alt_ms {r['depth_alt_ms']:.4f} "
+                     f"plain_ms {r['depth_plain_ms']:.4f} library_ms "
+                     f"{r['depth_library_ms']:.4f} bound_ms {r['depth_bound_ms']:.5f}")
         log(f"  {r['name']}: f32 max_abs_err {r['max_abs_err']:.3g}, {extra}  "
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
             f"library_ms {r['library_ms']:.4f}  bound_ms {r['bound_ms']:.5f} ({r['bound_by']})")
@@ -865,9 +908,9 @@ def main() -> int:
         log("  sass: not read (no cuobjdump)")
     else:
         log("  sass HGMMA instructions: " + ", ".join(f"{k} {v}" for k, v in sorted(hgmma.items())))
-        check(len(hgmma) == 4 and all(hgmma.values()),
-              f"the bf16 stage kernels (tile N 64 and 128, 1x1 and 3x3) lack tensor-core "
-              f"instructions: {hgmma}")
+        check(len(hgmma) == 6 and all(hgmma.values()),
+              f"the bf16 stage kernels (tile N 64 and 128, 1x1 and 3x3) and stem kernels "
+              f"(C=3 and 1) lack tensor-core instructions: {hgmma}")
     log(f"[phase 2 build] nvcc {'built ' + _build.LIB_PATH if secs else 'library up to date'} "
         f"in {secs:.1f}s ({time.perf_counter() - t0:.1f}s)")
 
@@ -927,7 +970,8 @@ def main() -> int:
         + f"; train rgbd {train['step_ms']:.3f} ms/step"
         + f" ({time.perf_counter() - t_all:.1f}s total)")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                 **{k: v for k, v in r.items() if k.startswith("depth_")}}
+                                 **{k: v for k, v in r.items()
+                                    if k.startswith("depth_") or k in ("engine", "alt_ms")}}
                                 for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -46,8 +46,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: (name, argtypes); every function returns int (cudaError_t)
 _SIGNATURES = {
-    # x, w, b, out, B, C, is_bf16, stream
-    "pose6d_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w (HWIO), b, out, B, C, stream: the f32 stem (stem.cu)
+    "pose6d_stem_f32": [_P, _P, _P, _P, _I, _I, _P],
+    # x, w_s2d ([64C, 64]), b, out, B, C, stream: the bf16 stem (stem_tc.cu)
+    "pose6d_stem_bf16": [_P, _P, _P, _P, _I, _I, _P],
     # x, weights (array of n_weights pointers), n_weights, n_blocks, t1, t2,
     # ya, yb, out, B, h, w, stride, cin, cmid, cout, is_bf16, plan (array of
     # (tile N, splits) per GEMM), n_plan, ws, tickets, stream
@@ -59,8 +61,9 @@ _SIGNATURES = {
     "pose6d_gemm_bf16": [_P] * 10 + [_I] * 12 + [_P],
     # pred, gt, out, B, P, stream
     "pose6d_addmin_forward": [_P, _P, _P, _I, _I, _P],
-    # src, idx, out, N, B, R (32-bit words per row), stream
-    "pose6d_gather_rows_u32": [_P, _P, _P, _I, _I, _I, _P],
+    # src, idx, out, N, B, R (32-bit words per row), bulk (copy engine),
+    # blocks (grid), stream
+    "pose6d_gather_rows_u32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

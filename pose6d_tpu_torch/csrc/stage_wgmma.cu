@@ -59,6 +59,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "stage.cuh"
 
 namespace {
@@ -92,20 +93,9 @@ struct Params {
 };
 
 // ------------------------------------------------------------------ PTX
+// (the shared helpers are in hopper.cuh)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; 0 source bytes (zero fill) when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
+using namespace pose6d_ptx;
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
@@ -116,26 +106,6 @@ __device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of `bar` with this parity has completed. A phase that
-// never completes is a bug: trap after ~2 s rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (!mbar_try_wait(bar, parity)) {
-    const long long t0 = clock64();
-    while (!mbar_try_wait(bar, parity))
-      if (clock64() - t0 > (1ll << 32)) __trap();
-  }
-  __syncwarp();
-}
-
 // atomicAdd(ticket, 1) with acquire-release ordering at device scope; returns
 // the old value.
 __device__ __forceinline__ int ticket_acq_rel(int* ticket) {
@@ -143,31 +113,6 @@ __device__ __forceinline__ int ticket_acq_rel(int* ticket) {
   asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
                : "=r"(old) : "l"(ticket) : "memory");
   return old;
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // d[64 x BN] += A[64 x 16] B[16 x BN]: A K-major, B N-major (trans-b 1), bf16

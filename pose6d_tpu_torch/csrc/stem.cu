@@ -1,6 +1,8 @@
-// ResNet50 stem for the folded serving towers: BN-folded conv1 7x7/s2/pad3
-// + bias + ReLU + maxpool 3x3/s2/pad1, one kernel, [B,224,224,C] NHWC ->
-// [B,56,56,64] NHWC, C = 3 (rgb tower) or 1 (rgbd depth tower).
+// ResNet50 stem for the folded serving towers in f32: BN-folded conv1
+// 7x7/s2/pad3 + bias + ReLU + maxpool 3x3/s2/pad1, one kernel,
+// [B,224,224,C] NHWC -> [B,56,56,64] NHWC, C = 3 (rgb tower) or 1 (rgbd
+// depth tower). The bf16 stem, the served one, runs on the tensor cores
+// (stem_tc.cu).
 //
 // Replaces: pose6d_tpu/ops/pallas_block.py fused_stem / _stem_kernel (the
 // TPU kernel ran conv1 as a 4x4/s1 conv on a space-to-depth input so that it
@@ -11,8 +13,8 @@
 // map to device memory only for the maxpool to read it back (1.6 MB per
 // image in bf16). The fused work is 0.24 GFLOP per image (C=3) against
 // 0.7 MB of unavoidable traffic, so with tensor cores it would be
-// compute-light and bandwidth-bound; this first version runs the MACs on the
-// CUDA cores in f32, which makes it FMA-bound.
+// compute-light and bandwidth-bound; in f32 the MACs run on the CUDA cores,
+// which makes this kernel FMA-bound.
 //
 // Design: one block per 8x8 tile of pooled outputs, all 64 channels. It
 // stages the 39x39xC input patch under the tile's 17x17 conv outputs and
@@ -22,11 +24,8 @@
 // input reads are warp broadcasts), then max-pools them. The conv1 map never
 // reaches device memory. Conv outputs outside the 112x112 map are the pool's
 // padding: 0 is exact, because every pool window also holds an output inside
-// the map and outputs are >= 0 after ReLU. Accumulation is f32; bf16 inputs
-// are exact in f32, and the output is rounded once to the input type (max
-// commutes with the monotone rounding, so this equals round-then-pool).
+// the map and outputs are >= 0 after ReLU. Accumulation is f32.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,23 +40,15 @@ constexpr int PT = 2 * CT + 5;      // input pixels those read: 39
 constexpr int THREADS = 256;
 constexpr int ROW_GROUPS = THREADS / CO;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 template <int C>
 constexpr size_t stem_smem_bytes() {
   return sizeof(float) * (PT * PT * C + 49 * C * CO + CT * CT * CO);
 }
 
-template <typename T, int C>
+template <int C>
 __global__ void __launch_bounds__(THREADS)
-stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
-            const float* __restrict__ bias, T* __restrict__ out) {
+stem_kernel(const float* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ bias, float* __restrict__ out) {
   extern __shared__ float smem[];
   float* s_in = smem;                  // [PT][PT][C]
   float* s_w = s_in + PT * PT * C;     // [7][7][C][CO]
@@ -69,16 +60,16 @@ stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int iy0 = 2 * cy0 - 3, ix0 = 2 * cx0 - 3;  // input origin they read
   const int tid = threadIdx.x;
 
-  const T* xb = x + (size_t)b * IN_HW * IN_HW * C;
+  const float* xb = x + (size_t)b * IN_HW * IN_HW * C;
   for (int i = tid; i < PT * PT * C; i += THREADS) {
     const int c = i % C, p = i / C;
     const int iy = iy0 + p / PT, ix = ix0 + p % PT;
     float v = 0.f;  // conv1's zero padding
     if (iy >= 0 && iy < IN_HW && ix >= 0 && ix < IN_HW)
-      v = to_f(xb[((size_t)iy * IN_HW + ix) * C + c]);
+      v = xb[((size_t)iy * IN_HW + ix) * C + c];
     s_in[i] = v;
   }
-  for (int i = tid; i < 49 * C * CO; i += THREADS) s_w[i] = to_f(w[i]);
+  for (int i = tid; i < 49 * C * CO; i += THREADS) s_w[i] = w[i];
   __syncthreads();
 
   const int co = tid % CO;
@@ -109,7 +100,7 @@ stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   __syncthreads();
 
-  T* ob = out + (size_t)b * OUT_HW * OUT_HW * CO;
+  float* ob = out + (size_t)b * OUT_HW * OUT_HW * CO;
   for (int i = tid; i < TILE * TILE * CO; i += THREADS) {
     const int c = i % CO, p = i / CO;
     const int ty = p / TILE, tx = p % TILE;
@@ -117,36 +108,30 @@ stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int dy = 0; dy < 3; ++dy)
       for (int dx = 0; dx < 3; ++dx)
         m = fmaxf(m, s_conv[((2 * ty + dy) * CT + 2 * tx + dx) * CO + c]);
-    ob[((size_t)(py0 + ty) * OUT_HW + px0 + tx) * CO + c] = from_f<T>(m);
+    ob[((size_t)(py0 + ty) * OUT_HW + px0 + tx) * CO + c] = m;
   }
 }
 
-template <typename T, int C>
+template <int C>
 cudaError_t launch_stem(const void* x, const void* w, const void* b, void* out,
                         int B, cudaStream_t stream) {
   const size_t smem = stem_smem_bytes<C>();
   cudaError_t err = cudaFuncSetAttribute(
-      stem_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      stem_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(OUT_HW / TILE, OUT_HW / TILE, B);
-  stem_kernel<T, C><<<grid, THREADS, smem, stream>>>(
-      (const T*)x, (const T*)w, (const float*)b, (T*)out);
+  stem_kernel<C><<<grid, THREADS, smem, stream>>>(
+      (const float*)x, (const float*)w, (const float*)b, (float*)out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B,224,224,C], w [7,7,C,64] (HWIO, same type as x), b [64] f32,
-// out [B,56,56,64]; type is bf16 when is_bf16 else f32.
-extern "C" int pose6d_stem_forward(const void* x, const void* w, const void* b,
-                                   void* out, int B, int C, int is_bf16,
-                                   void* stream) {
+// x [B,224,224,C] f32, w [7,7,C,64] f32 (HWIO), b [64] f32, out [B,56,56,64] f32.
+extern "C" int pose6d_stem_f32(const void* x, const void* w, const void* b,
+                               void* out, int B, int C, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (C == 3)
-    return is_bf16 ? launch_stem<__nv_bfloat16, 3>(x, w, b, out, B, s)
-                   : launch_stem<float, 3>(x, w, b, out, B, s);
-  if (C == 1)
-    return is_bf16 ? launch_stem<__nv_bfloat16, 1>(x, w, b, out, B, s)
-                   : launch_stem<float, 1>(x, w, b, out, B, s);
+  if (C == 3) return launch_stem<3>(x, w, b, out, B, s);
+  if (C == 1) return launch_stem<1>(x, w, b, out, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,13 +2,15 @@
 (counterpart of pose6d_tpu/ops/pallas_block.py fused_stem / fused_layer1 /
 fused_stage).
 
-Each wrapper launches its hand-written CUDA kernel (csrc/stem.cu, or
-csrc/stage.cu for fused_stage and for fused_layer1, which is fused_stage at
-stage 1 behind its own launch count: f32 on CUDA-core FMAs, bf16 on the
-tensor cores through csrc/stage_wgmma.cu, tiled and split as `stage_plan`
-says) for a CUDA tensor and runs its plain
-PyTorch version, `reference_stem` / `reference_layer1` /
-`reference_stage`, for a CPU tensor; any other device raises. Kernels and plain versions take the
+Each wrapper launches its hand-written CUDA kernel for a CUDA tensor: the
+stem in f32 on CUDA-core FMAs (csrc/stem.cu), in bf16 on the tensor cores
+(csrc/stem_tc.cu, a wgmma implicit GEMM over the space-to-depth taps of
+`stem_s2d_weights`); fused_stage, and fused_layer1 (fused_stage at stage 1
+behind its own launch count), in f32 on CUDA-core FMAs (csrc/stage.cu), in
+bf16 on the tensor cores (csrc/stage_wgmma.cu, tiled and split as
+`stage_plan` says). For a CPU tensor it runs its plain PyTorch version,
+`reference_stem` / `reference_layer1` / `reference_stage`; any other device
+raises. Kernels and plain versions take the
 same packed weights and keep the TPU kernels' numeric contract: f32
 accumulation, bias and residual added in f32, activations rounded to the
 compute type (the dtype of x) at every conv output that the TPU kernel
@@ -129,12 +131,25 @@ def stage_workspace(plan) -> tuple[int, int]:
             max((g.tiles for g in split), default=0))
 
 
+def stem_s2d_weights(w: torch.Tensor) -> torch.Tensor:
+    """conv1 [7,7,C,64] HWIO -> [16*4C, 64] in w's dtype: conv1 7x7/s2 as a
+    4x4/s1 conv over the 2x2 space-to-depth input, the JAX package's w2cat
+    (pallas_block.pack_stem_weights): row (tap (u, v), u and v in -2..1 with
+    v fastest; s2d channel (py, px, c)) holds w[2u+py+3, 2v+px+3, c], zero
+    where the 7x7 kernel has no tap (ky or kx = -1)."""
+    C = w.shape[2]
+    w8 = w.new_zeros((8, 8, C, CIN))
+    w8[1:, 1:] = w  # index ky + 1 = 2 (u + 2) + py
+    return w8.reshape(4, 2, 4, 2, C, CIN).permute(0, 2, 1, 3, 4, 5).reshape(64 * C, CIN).contiguous()
+
+
 def pack_stem_weights(folded: dict, dtype=torch.bfloat16):
-    """The folded conv1 entry (OIHW [64,C,7,7]) as the kernel's pair:
-    (w [7,7,C,64] HWIO in dtype, b [64] f32). The TPU kernel's space-to-depth
-    rearrangement of the same weights is not needed here."""
+    """The folded conv1 entry (OIHW [64,C,7,7]) as the kernel's tuple:
+    (w [7,7,C,64] HWIO in dtype, b [64] f32), and in bf16 also the tensor-
+    core kernel's [16*4C, 64] matrix, stem_s2d_weights(w)."""
     w = folded["conv1"]["w"].permute(2, 3, 1, 0).contiguous().to(dtype)
-    return w, folded["conv1"]["b"].float().contiguous()
+    b = folded["conv1"]["b"].float().contiguous()
+    return (w, b, stem_s2d_weights(w)) if dtype == torch.bfloat16 else (w, b)
 
 
 def pack_stage_weights(folded: dict, stage: int, dtype=torch.bfloat16):
@@ -189,8 +204,9 @@ def _stage_shapes(stage: int) -> list:
 
 def reference_stem(x: torch.Tensor, weights) -> torch.Tensor:
     """conv1 7x7/s2/pad3 + bias in f32, ReLU, round to x.dtype, maxpool
-    3x3/s2/pad1 (torch's -inf padding) -> [B,56,56,64] in x.dtype."""
-    w, b = weights
+    3x3/s2/pad1 (torch's -inf padding) -> [B,56,56,64] in x.dtype.
+    weights: (w, b, ...) of pack_stem_weights."""
+    w, b = weights[:2]
     y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.float().permute(3, 2, 0, 1),
                  b.float(), stride=2, padding=3)
     y = F.relu(y).to(x.dtype)
@@ -253,11 +269,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _launch_stem(x, w, b, out, stream: int) -> None:
+def _launch_stem(x, weights, out, stream: int) -> None:
     B, _, _, C = x.shape
-    code = _build.lib().pose6d_stem_forward(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, C,
-        _dtype_flag(x), stream)
+    if x.dtype == torch.bfloat16:  # the tensor cores, on the s2d weight matrix
+        launch, w = _build.lib().pose6d_stem_bf16, weights[2]
+    else:
+        launch, w = _build.lib().pose6d_stem_f32, weights[0]
+    code = launch(x.data_ptr(), w.data_ptr(), weights[1].data_ptr(), out.data_ptr(), B, C, stream)
     _build.check(code, "fused_stem")
 
 
@@ -277,21 +295,25 @@ def _launch_stage(x, weights, stage: int, scratch, out, stream: int) -> None:
 
 def fused_stem(x: torch.Tensor, weights) -> torch.Tensor:
     """conv1 + ReLU + maxpool as one kernel. x [B,224,224,C] (C 3 or 1) in
-    f32 or bf16; weights from pack_stem_weights in x's dtype. Returns
-    [B,56,56,64] in x.dtype."""
-    w, b = weights
-    _dtype_flag(x)
+    f32 or bf16; weights from pack_stem_weights in x's dtype ((w, b) in
+    f32, (w, b, w_s2d) in bf16). Returns [B,56,56,64] in x.dtype."""
+    bf16 = _dtype_flag(x)
     if x.ndim != 4 or x.shape[1:3] != (STEM_IN, STEM_IN) or x.shape[3] not in (1, 3):
         raise ValueError(f"fused_stem: x must be [B,224,224,1|3], got {tuple(x.shape)}")
     C = x.shape[3]
-    _check("w", w, x.dtype, (7, 7, C, CIN))
-    _check("b", b, torch.float32, (CIN,))
+    _check("w", weights[0], x.dtype, (7, 7, C, CIN))
+    _check("b", weights[1], torch.float32, (CIN,))
+    if len(weights) != 2 + bf16:
+        raise ValueError(f"fused_stem: expected {2 + bf16} weights from pack_stem_weights "
+                         f"in {x.dtype}, got {len(weights)}")
+    if bf16:
+        _check("w_s2d", weights[2], x.dtype, (64 * C, CIN))
     if x.device.type == "cpu":
         return reference_stem(x, weights)
-    _build.check_on_card(x, (w, b))
+    _build.check_on_card(x, weights)
     out = torch.empty((x.shape[0], H, W, CIN), dtype=x.dtype, device=x.device)
     with _build.on_device(x.device) as stream:
-        _launch_stem(x, w, b, out, stream)
+        _launch_stem(x, weights, out, stream)
     _build.launch_counts[f"fused_stem_c{C}"] += 1
     return out
 

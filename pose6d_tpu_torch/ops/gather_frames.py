@@ -6,9 +6,10 @@ as host-packed 32-bit words, [N, R] with one frame per row (uint8 RGB
 [H, W, 3] or uint16 depth [H, W] viewed as words), and gathers each step's
 batch by index (train/loop.expand_device_batch).
 
-`gather_rows_u32` launches the CUDA kernel (csrc/gather.cu) for a CUDA
-tensor and runs the plain version `_gather_rows_plain` for a CPU tensor;
-any other device raises. Words are int32 or uint32 (torch's uint32 has few
+`gather_rows_u32` launches the CUDA kernel (csrc/gather.cu, a persistent
+copy: the output's 16 KB chunks dealt round-robin to a grid sized to the
+card, `gather_shares`) for a CUDA tensor and runs the plain version
+`_gather_rows_plain` for a CPU tensor; any other device raises. Words are int32 or uint32 (torch's uint32 has few
 kernels, so the plain version gathers an int32 view). Both are pure word
 moves, bit-exact with `src[idx]`. Indices outside [0, N) clamp into it, in
 the kernel and in the plain version alike, as JAX's indexing gather
@@ -24,6 +25,7 @@ falls back to `jnp.take`. A non-contiguous `src` raises on every device.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -32,6 +34,14 @@ import torch
 from .. import _build
 
 LANES = 128  # a row is a whole number of 128-word lines, as on the TPU
+# The kernel's copy engine: Hopper bulk copies through a shared-memory ring
+# (True) or a 16-byte vector loop (False, the wrapper's); chip_smoke.py
+# times both, and ops/gather_sweep.py each at other grids
+BULK = False
+# Blocks of each engine the grid gives an SM: all that fit at once (bulk:
+# its 64 KB ring; loop: 8 x 256 threads at 32 registers)
+BLOCKS_PER_SM = {True: 3, False: 8}
+CHUNK_VECS = 1024  # 16-byte vectors of a chunk, the unit of the shares (16 KB)
 
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 
@@ -42,10 +52,48 @@ def _gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src.view(torch.int32).index_select(0, rows).view(src.dtype)
 
 
-def _launch_gather(src, idx, out, stream: int) -> None:
+def gather_blocks(n_vecs: int, slots: int) -> int:
+    """The kernel's grid for a copy of n_vecs 16-byte vectors on a card
+    that holds `slots` of its blocks at once (SMs x blocks per SM): every
+    slot, or one block per chunk if that is fewer."""
+    return min(slots, -(-n_vecs // CHUNK_VECS))
+
+
+def gather_shares(batch: int, row_words: int, blocks: int) -> list:
+    """How the kernel cuts out [batch, row_words] among `blocks` blocks:
+    the output's V = batch * row_words / 4 16-byte vectors in chunks of
+    CHUNK_VECS (the last may be short), block i taking chunks i, i + G,
+    i + 2G, ... (G = blocks) in that order, each chunk as its pieces inside
+    one row: (b, first vector in row b, vectors), read from source row
+    clamp(idx[b])."""
+    vpr = row_words // 4
+    total = batch * vpr
+    shares = []
+    for i in range(blocks):
+        pieces = []
+        for start in range(i * CHUNK_VECS, total, blocks * CHUNK_VECS):
+            v, end = start, min(total, start + CHUNK_VECS)
+            while v < end:
+                b = v // vpr
+                n = min(end, (b + 1) * vpr) - v
+                pieces.append((b, v - b * vpr, n))
+                v += n
+        shares.append(pieces)
+    return shares
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_gather(src, idx, out, stream: int, bulk: bool = BULK,
+                   blocks_per_sm: int | None = None) -> None:
+    per_sm = BLOCKS_PER_SM[bulk] if blocks_per_sm is None else blocks_per_sm
+    blocks = gather_blocks(out.numel() // 4, _sm_count(src.device) * per_sm)
     code = _build.lib().pose6d_gather_rows_u32(
         src.data_ptr(), idx.data_ptr(), out.data_ptr(), src.shape[0], idx.shape[0],
-        src.shape[1], stream)
+        src.shape[1], int(bulk), blocks, stream)
     _build.check(code, "gather_rows_u32")
 
 

@@ -3,7 +3,13 @@ gather_frames_packed (its Pallas row gather in interpret mode on the CPU)
 and jnp.take: bit-exact for uint8 RGB, uint16 depth and uint32 frames, the
 odd-geometry fallback, and the host pack. The port's wrapper runs its
 plain version here (CPU tensors); the kernel is held to it on the card
-(tests/test_torch_kernels_gpu.py, chip_smoke.py)."""
+(tests/test_torch_kernels_gpu.py, chip_smoke.py). The kernel's share plan
+(gather_shares, the split csrc/gather.cu computes: the output's 16-byte
+vectors in chunks of CHUNK_VECS, block i of G taking chunks i, i + G, ...)
+is checked here: every 16-byte vector once, each share in order, shares
+that differ by at most one chunk, pieces that break only at chunk ends
+and row crossings, and a copy that follows the plan bit for bit equal to
+src[clamp(idx)]."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -101,3 +107,53 @@ def test_gather_frames_refuses_non_contiguous():
         assert not src.is_contiguous()
         with pytest.raises(ValueError, match="contiguous"):
             tgf.gather_frames(src, torch.tensor([0, 1]))
+
+
+SLOTS = (132 * 4, 132 * 3, 1)  # an H100's loop (4 a SM) and bulk (3 a SM) blocks; one block
+
+
+@pytest.mark.parametrize("slots", SLOTS)
+@pytest.mark.parametrize("r", [128, 384, 153_600, 230_400])
+@pytest.mark.parametrize("batch", [1, 3, 32, 33])
+def test_shares_cover_every_vector_once_in_order(batch, r, slots):
+    vpr, chunk = r // 4, tgf.CHUNK_VECS
+    total = batch * vpr
+    blocks = tgf.gather_blocks(total, slots)
+    assert blocks == min(slots, -(-total // chunk)) >= 1  # every slot, or a block per chunk
+    shares = tgf.gather_shares(batch, r, blocks)
+    assert len(shares) == blocks
+    sizes = [sum(n for _, _, n in pieces) for pieces in shares]
+    assert max(sizes) - min(sizes) <= chunk
+    covered = []
+    for i, pieces in enumerate(shares):
+        at = [b * vpr + first for b, first, _ in pieces]
+        assert at == sorted(at)  # in order
+        for j, (b, first, n) in enumerate(pieces):
+            assert n > 0 and first + n <= vpr  # inside one row
+            start = b * vpr + first
+            assert start // chunk % blocks == i  # one of block i's chunks
+            if start % chunk:  # not a chunk's head: it follows a row crossing
+                prev_b, prev_first, prev_n = pieces[j - 1]
+                assert first == 0 and b == prev_b + 1 and prev_first + prev_n == vpr
+            covered.append((start, n))
+    covered.sort()
+    assert covered[0][0] == 0 and sum(n for _, n in covered) == total
+    assert all(a + n == c for (a, n), (c, _) in zip(covered, covered[1:]))  # once each
+
+
+@pytest.mark.parametrize("batch,r", [(1, 128), (3, 384), (33, 128)])
+def test_copy_by_the_share_plan_is_the_gather(batch, r):
+    """Each block's segments, copied from source row clamp(idx[b]), give
+    src[clamp(idx)] bit for bit, repeated and out-of-range indices included."""
+    n = 5
+    src = _src((n, r), np.uint32)
+    idx = np.resize([4, -2, 2, 2, 9, 0], batch)
+    blocks = tgf.gather_blocks(batch * r // 4, 132 * 3)
+    out = np.zeros((batch, r), np.uint32)
+    vec = lambda a: a.reshape(a.shape[0], -1, 4)  # noqa: E731 — 16-byte vectors
+    for segs in tgf.gather_shares(batch, r, blocks):
+        for b, first, cnt in segs:
+            row = min(max(int(idx[b]), 0), n - 1)
+            vec(out)[b, first:first + cnt] = vec(src)[row, first:first + cnt]
+    np.testing.assert_array_equal(out, src[np.clip(idx, 0, n - 1)])
+

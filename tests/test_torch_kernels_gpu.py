@@ -3,13 +3,16 @@ without one). Run on a machine with a CUDA card and nvcc:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
-Kernels: the fused stem, layer1, the parametric stage (stages 1-4 at
+Kernels: the fused stem (the bf16 tensor-core kernel also at batches 1,
+2, 3, 8 and 32, and two bf16 launches bit for bit equal), layer1, the
+parametric stage (stages 1-4 at
 batches 1, 2, 3, 8 and 32, stage 1 bit for bit equal to layer1, and two
 bf16 launches bit for bit equal under split-K), the bf16 wgmma GEMM alone
 in each geometry a stage gives it (dense 1x1, 3x3 at stride 1 and 2, the
 conv3 + shortcut pair, the identity residual; with and without split-K),
 the ADD-S nearest-point search and the frame-row gather (bit for bit
-equal to its plain version). Beside
+equal to its plain version with both copy engines, at batches 1, 3, 32 and
+33 of 128- to 230,400-word rows, with repeated and clamped indices). Beside
 them: each kernel launches on its input's card when another card is
 current (skipped below two cards), one device-preprocess train step of
 each PoseNet variant is finite on the card, and the rgbd train epoch
@@ -73,6 +76,25 @@ def test_stem_kernel(cuda, C, dtype):
     assert _build.launch_counts[f"fused_stem_c{C}"] == before + 1
     want = fb.reference_stem(x.float().to(cuda), (w[0].float().to(cuda), w[1].to(cuda)))
     _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("C", [3, 1])
+def test_stem_tensor_core_kernel(cuda, C, batch):
+    """The bf16 stem (csrc/stem_tc.cu) at the serving batch and around it,
+    every tile of every image against the f32 plain version; two launches on
+    the same input are equal bit for bit."""
+    w = _to(fb.pack_stem_weights(_folded({"conv1": (7, C, 64)}, seed=batch), torch.bfloat16),
+            cuda)
+    x = torch.randn(batch, 224, 224, C, generator=torch.Generator().manual_seed(10 + batch))
+    x = x.to(torch.bfloat16).to(cuda)
+    got = fb.fused_stem(x, w)
+    again = fb.fused_stem(x, w)
+    torch.cuda.synchronize()
+    want = fb.reference_stem(x.float(), (w[0].float(), w[1]))
+    for i in range(batch):  # per image, so that a wrong image offset shows
+        _check(got[i:i + 1], want[i:i + 1], torch.bfloat16)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -275,7 +297,8 @@ def test_gather_kernel_bit_equal(cuda, frame):
 
 @pytest.mark.parametrize("rows,r", [(3, 128), (5, 128 * 9), (2, 4096 + 128)])
 def test_gather_kernel_row_lengths(cuda, rows, r):
-    """Rows shorter than one block's 1024 vectors, and ragged last chunks."""
+    """Rows shorter than a 1024-vector chunk, and chunks that end inside a
+    row."""
     words = torch.randint(-2**31, 2**31 - 1, (rows, r), dtype=torch.int32, device=cuda)
     idx = torch.arange(rows - 1, -1, -1, device=cuda)
     assert torch.equal(gf.gather_rows_u32(words, idx), words.flip(0))
@@ -363,3 +386,26 @@ def test_train_epoch_never_waits_for_the_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert n == 2 and torch.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("bulk", [True, False])
+@pytest.mark.parametrize("r", [128, 384, 153_600, 230_400])
+@pytest.mark.parametrize("batch", [1, 3, 32, 33])
+def test_gather_kernel_shares(cuda, batch, r, bulk):
+    """Both copy engines of the persistent gather at the batches and row
+    lengths of the CPU share-plan test (LineMOD's depth and RGB rows among
+    them): bit for bit equal to the plain version, with repeated indices and
+    indices outside [0, N) that clamp."""
+    n = 40
+    words = torch.randint(-2**31, 2**31 - 1, (n, r), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(r)).to(cuda)
+    rng = np.random.default_rng(batch)
+    idx = rng.integers(0, n, batch)
+    idx[::3] = idx[0]  # repeats
+    idx[1::4] = np.resize([-7, n, 10**6, -1], len(idx[1::4]))  # clamp to 0 or n - 1
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    out = torch.empty(batch, r, dtype=torch.int32, device=cuda)
+    gf._launch_gather(words, idx, out, torch.cuda.current_stream().cuda_stream, bulk=bulk)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gf._gather_rows_plain(words, idx))
+
