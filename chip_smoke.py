@@ -28,10 +28,9 @@ Phases, each printed on its own line with its seconds:
      gather moves B = 1, 3 and 32 rows of the train phase's resident store
      (256 frames at 640x480, RGB and depth words; repeated indices and
      indices outside [0, N) that clamp) bit for bit equal to its plain
-     version, and is timed at B = 32 with both its copy engines (the
-     vector loop and bulk copies, `engine` and `alt_ms` in the JSON line),
-     each run on the next batch of a permutation of the frames, as a train
-     epoch draws them (its source not in L2);
+     version, and is timed at B = 32, each run on the next batch of a
+     permutation of the frames, as a train epoch draws them (its source
+     not in L2);
   4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
      frames, two ResNet50 towers at 224, attention dim 2048) with seeded
      weights, folded bf16 towers with the stem and layer1 kernels, over 3
@@ -179,7 +178,7 @@ _STEM_KERNEL = re.compile(r"stem_tc_kernelILi(\d)E")
 TENSOR_CORE_KERNELS = ("wgmma", "stem_tc")  # name prefixes of the kernels that must hold HGMMA
 
 
-def _stage_kernel_name(mangled: str):
+def _kernel_name(mangled: str):
     """'wgmma_gemm_kernel<bn=128,conv3x3=1>' (stage_wgmma.cu, bf16),
     'gemm_kernel<conv3x3=0>' (stage.cu, f32) or 'stem_tc_kernel<C=3>'
     (stem_tc.cu, bf16) from a mangled name, else None."""
@@ -199,11 +198,11 @@ def ptxas_summary(log: str) -> list[str]:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name = _stage_kernel_name(entry.group(1))
+            name = _kernel_name(entry.group(1))
             continue
         waits = re.search(r"\(C7517\).* in function '(\S+)'", line)
-        if waits and _stage_kernel_name(waits.group(1)):
-            rows.setdefault(_stage_kernel_name(waits.group(1)), {})["waits"] = "C7517 wait injected"
+        if waits and _kernel_name(waits.group(1)):
+            rows.setdefault(_kernel_name(waits.group(1)), {})["waits"] = "C7517 wait injected"
         if name is None:
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -228,7 +227,7 @@ def hgmma_counts(lib_path: str) -> dict | None:
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            name = _stage_kernel_name(fn.group(1))
+            name = _kernel_name(fn.group(1))
             if name and name.startswith(TENSOR_CORE_KERNELS):
                 counts[name] = 0
             continue
@@ -329,23 +328,17 @@ def gather_row(store, rng):
     """The frame gather on the train phase's resident words: RGB and depth
     rows at batches 1, 3 and 32 (repeated indices, and indices outside
     [0, N) that clamp) bit-equal to the plain version (index_select on the
-    int32 view of the clamped indices) with both copy engines; then at
-    batch 32 timed beside the other engine (`alt_ms`), the plain version,
-    index_select alone (the library call) and the bytes bound (each row
-    read and written once). Each timed run gathers the next of the 8
-    disjoint batches of one permutation of the 256 frames, as a train epoch
-    draws them: its source was last read 7 runs (138 MB of depth words)
-    earlier, so it is not in the 50 MB L2, as in the train step."""
+    int32 view of the clamped indices); then at batch 32 timed beside the
+    plain version, index_select alone (the library call) and the bytes
+    bound (each row read and written once). Each timed run gathers the
+    next of the 8 disjoint batches of one permutation of the 256 frames, as
+    a train epoch draws them: its source was last read 7 runs (138 MB of
+    depth words) earlier, so it is not in the 50 MB L2, as in the train
+    step."""
     from pose6d_tpu_torch.ops import gather_frames as gf
 
     dev = store.device
     n = len(store)
-
-    def alt(words, idx):  # the engine the wrapper does not take, timed only
-        out = torch.empty((idx.numel(), words.shape[1]), dtype=words.dtype, device=dev)
-        gf._launch_gather(words, idx, out, torch.cuda.current_stream(dev).cuda_stream,
-                          bulk=not gf.BULK)
-        return out
 
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(SEED)).to(torch.int32)
     batches = [perm[i:i + 32].to(dev) for i in range(0, n - 31, 32)]
@@ -363,24 +356,20 @@ def gather_row(store, rng):
             picks[::3] = picks[0]  # repeats
             picks[1::4] = np.resize([-5, n, 10**6, -1], len(picks[1::4]))  # clamp to 0, n - 1
             idx = torch.from_numpy(picks.astype(np.int32)).to(dev)
-            want = gf._gather_rows_plain(words, idx)
-            for engine, got in (("kernel", gf.gather_rows_u32(words, idx)),
-                                ("other engine", alt(words, idx))):
-                check(torch.equal(got, want), f"gather_rows_u32 ({kind} words, batch {batch}, "
-                                              f"{engine}) differs from its plain version")
-                err = max(err, float((got.long() - want.long()).abs().max().item()))
+            got, want = gf.gather_rows_u32(words, idx), gf._gather_rows_plain(words, idx)
+            check(torch.equal(got, want), f"gather_rows_u32 ({kind} words, batch {batch}) "
+                                          f"differs from its plain version")
+            err = max(err, float((got.long() - want.long()).abs().max().item()))
         sync(dev)
         b_ms, b_by = bound_ms(2.0 * 32 * words.shape[1] * 4, 0.0, torch.float32)
         out[kind] = {"max_abs_err": err,
                      "ms": epoch_ms(lambda i: gf.gather_rows_u32(words, i)),
-                     "alt_ms": epoch_ms(lambda i: alt(words, i)),
                      "plain_ms": epoch_ms(lambda i: gf._gather_rows_plain(words, i)),
                      "library_ms": epoch_ms(lambda i: words.index_select(0, i)),
                      "bound_ms": b_ms, "bound_by": b_by}
     row = {"name": "gather_rows_u32", "route": "cuda",
            "source": "pose6d_tpu_torch/csrc/gather.cu",
-           "replaces": "pose6d_tpu/ops/gather_frames.py:60",
-           "engine": "bulk" if gf.BULK else "loop", **out["rgb"]}
+           "replaces": "pose6d_tpu/ops/gather_frames.py:60", **out["rgb"]}
     row.update({f"depth_{k}": v for k, v in out["depth"].items() if k != "bound_by"})
     row["max_abs_err"] = max(out["rgb"]["max_abs_err"], out["depth"]["max_abs_err"])
     return row
@@ -480,10 +469,9 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
         elif "f64_max_err" in r:
             extra = f"f64 max err {r['f64_max_err']:.3g}"
         else:
-            extra = (f"bit-equal; {r['engine']} engine, the other's alt_ms {r['alt_ms']:.4f}; "
-                     f"depth words ms {r['depth_ms']:.4f} alt_ms {r['depth_alt_ms']:.4f} "
-                     f"plain_ms {r['depth_plain_ms']:.4f} library_ms "
-                     f"{r['depth_library_ms']:.4f} bound_ms {r['depth_bound_ms']:.5f}")
+            extra = (f"bit-equal; depth words ms {r['depth_ms']:.4f} plain_ms "
+                     f"{r['depth_plain_ms']:.4f} library_ms {r['depth_library_ms']:.4f} "
+                     f"bound_ms {r['depth_bound_ms']:.5f}")
         log(f"  {r['name']}: f32 max_abs_err {r['max_abs_err']:.3g}, {extra}  "
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
             f"library_ms {r['library_ms']:.4f}  bound_ms {r['bound_ms']:.5f} ({r['bound_by']})")
@@ -970,8 +958,7 @@ def main() -> int:
         + f"; train rgbd {train['step_ms']:.3f} ms/step"
         + f" ({time.perf_counter() - t_all:.1f}s total)")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                 **{k: v for k, v in r.items()
-                                    if k.startswith("depth_") or k in ("engine", "alt_ms")}}
+                                 **{k: v for k, v in r.items() if k.startswith("depth_")}}
                                 for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -61,9 +61,8 @@ _SIGNATURES = {
     "pose6d_gemm_bf16": [_P] * 10 + [_I] * 12 + [_P],
     # pred, gt, out, B, P, stream
     "pose6d_addmin_forward": [_P, _P, _P, _I, _I, _P],
-    # src, idx, out, N, B, R (32-bit words per row), bulk (copy engine),
-    # blocks (grid), stream
-    "pose6d_gather_rows_u32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # src, idx, out, N, B, R (32-bit words per row), blocks (grid), stream
+    "pose6d_gather_rows_u32": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

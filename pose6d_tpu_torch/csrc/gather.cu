@@ -16,48 +16,33 @@
 // Design: a persistent copy with even shares. The output's B * R / 4
 // 16-byte vectors are cut into chunks of 1024 (16 KB; the last may be
 // short), and the caller sizes the grid to the card
-// (ops/gather_frames.gather_blocks: its SM count times the blocks of the
-// engine an SM runs at once, or one block per chunk if that is fewer).
+// (ops/gather_frames.gather_blocks: its SM count times the 8 blocks of 256
+// threads an SM runs at once, or one block per chunk if that is fewer).
 // Block i copies chunks i, i + G, i + 2G, ...: shares differ by at most one
 // chunk, so every SM moves the same bytes, with no tail wave and no
 // half-empty block at each row's end (the fixed 16 KB blocks of the first
 // version left 1.15 / 1.73 waves at batch 32), and the blocks running at
 // once work on neighbouring chunks, which keeps device memory's accesses
 // close together (one contiguous run per block, tried first, read slower).
-// A chunk may run from the tail of one row into the
-// head of the next; at each crossing the block reads that row's index and
-// clamps it into [0, N): no index reads outside the buffer, as JAX's
-// indexing gather clamps. ops/gather_frames.gather_shares is the same split
-// in Python, for the tests. Rows are whole multiples of 128 words, so every
-// vector is aligned and no row needs a tail. Two copy engines (`bulk`), both
-// timed by chip_smoke.py; the wrapper takes the loop, the faster:
-// - loop: 256 threads per block copy a chunk's pieces (its runs inside one
-//   row) with 4 16-byte vectors per thread, loads streaming past L1
-//   (__ldcs: each frame is read once), stores default-cached, since the
-//   crop that follows reads them.
-// - bulk: one warp per block; its first lane moves the pieces through a
-//   ring of 4 16 KB shared-memory stages with Hopper's bulk copies:
-//   cp.async.bulk global -> shared, completing on the stage's mbarrier
-//   (complete_tx), then cp.async.bulk shared -> global in a bulk group,
-//   whose shared-memory reads must finish before the stage is refilled.
-//   Loads carry an L2 evict-first hint. No tensor map, so no driver library
-//   at link time.
-
-#include <cstdint>
+// A chunk may run from the tail of one row into the head of the next; at
+// each crossing the block reads that row's index and clamps it into
+// [0, N): no index reads outside the buffer, as JAX's indexing gather
+// clamps. ops/gather_frames.gather_shares is the same split in Python, for
+// the tests. Rows are whole multiples of 128 words, so every vector is
+// aligned and no row needs a tail. A block copies a chunk's pieces (its
+// runs inside one row) with 4 16-byte vectors per thread, loads streaming
+// past L1 (__ldcs: each frame is read once), stores default-cached, since
+// the crop that follows reads them. (Hopper's bulk copies through a
+// shared-memory ring, timed beside this loop on the same shares, were no
+// faster: PERF.md.)
 
 #include <cuda_runtime.h>
 
-#include "hopper.cuh"
-
 namespace {
 
-using namespace pose6d_ptx;
-
 constexpr int CHUNK_VECS = 1024;  // 16 KB: the unit of the shares
-constexpr int LOOP_THREADS = 256;
-constexpr int LOOP_UNROLL = CHUNK_VECS / LOOP_THREADS;  // a piece in one pass
-constexpr int BULK_STAGES = 4;
-constexpr int BULK_SMEM = BULK_STAGES * CHUNK_VECS * 16;  // a stage holds a chunk
+constexpr int THREADS = 256;
+constexpr int PER_THREAD = CHUNK_VECS / THREADS;  // a piece in one pass
 
 // The pieces of this block's share in order: its chunks blockIdx.x,
 // blockIdx.x + gridDim.x, ..., each cut at the row crossings inside it.
@@ -96,124 +81,40 @@ struct Pieces {
   }
 };
 
-__global__ void __launch_bounds__(LOOP_THREADS)
-gather_loop_kernel(const uint4* __restrict__ src, const int* __restrict__ idx,
+__global__ void __launch_bounds__(THREADS)
+gather_rows_kernel(const uint4* __restrict__ src, const int* __restrict__ idx,
                    uint4* __restrict__ out, int n_rows, long long vpr, long long total) {
   Pieces pieces(idx, n_rows, vpr, total);
   while (pieces.more()) {
     long long dst, from;
     int n;
     pieces.next(dst, from, n);
-    uint4 v[LOOP_UNROLL];
+    uint4 v[PER_THREAD];
 #pragma unroll
-    for (int k = 0; k < LOOP_UNROLL; ++k) {
-      const int i = threadIdx.x + k * LOOP_THREADS;
+    for (int k = 0; k < PER_THREAD; ++k) {
+      const int i = threadIdx.x + k * THREADS;
       if (i < n) v[k] = __ldcs(src + from + i);
     }
 #pragma unroll
-    for (int k = 0; k < LOOP_UNROLL; ++k) {
-      const int i = threadIdx.x + k * LOOP_THREADS;
+    for (int k = 0; k < PER_THREAD; ++k) {
+      const int i = threadIdx.x + k * THREADS;
       if (i < n) out[dst + i] = v[k];
     }
   }
 }
 
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar, uint64_t policy) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy) : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               "cp.async.bulk.commit_group;\n"
-               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
-}
-
-// Wait until all but the newest N bulk groups have read their shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
-}
-
-__global__ void __launch_bounds__(32)
-gather_bulk_kernel(const uint4* __restrict__ src, const int* __restrict__ idx,
-                   uint4* __restrict__ out, int n_rows, long long vpr, long long total) {
-  extern __shared__ __align__(128) uint8_t ring[];
-  __shared__ __align__(8) uint64_t full[BULK_STAGES];
-  const bool leader = threadIdx.x == 0;
-  const uint32_t ring0 = smem_u32(ring), bar0 = smem_u32(full);
-  if (leader) {
-    for (int s = 0; s < BULK_STAGES; ++s) mbar_init(bar0 + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncwarp();
-  uint64_t policy = 0;
-  if (leader) asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-
-  // Two walks over the same pieces: `loads` runs up to BULK_STAGES pieces
-  // ahead of `stores`; piece k lives in stage k % BULK_STAGES. Every lane
-  // walks both (the pieces are the same for all), the first lane copies.
-  Pieces loads(idx, n_rows, vpr, total);
-  Pieces stores(idx, n_rows, vpr, total);
-  auto load = [&](int k) {
-    long long dst, from;
-    int n;
-    loads.next(dst, from, n);
-    const int s = k % BULK_STAGES;
-    if (leader)
-      bulk_load(ring0 + s * CHUNK_VECS * 16, src + from, n * 16u, bar0 + 8 * s, policy);
-  };
-  int issued = 0;
-  while (issued < BULK_STAGES && loads.more()) load(issued++);
-  for (int k = 0; k < issued; ++k) {
-    const int s = k % BULK_STAGES;
-    mbar_wait(bar0 + 8 * s, (k / BULK_STAGES) & 1);
-    long long dst, from;
-    int n;
-    stores.next(dst, from, n);
-    if (leader) {
-      fence_proxy_async();
-      bulk_store(out + dst, ring0 + s * CHUNK_VECS * 16, n * 16u);
-    }
-    // refill the stage of piece k - 1 once its store has read it (the store
-    // of piece k may still be reading)
-    if (k >= 1 && loads.more()) {
-      if (leader) bulk_wait_read<1>();
-      load(issued++);
-    }
-  }
-  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 }  // namespace
 
 // src [N, R] and out [B, R] 32-bit words, 16-byte aligned, R % 4 == 0;
-// idx [B] int32. bulk selects the copy engine (1 bulk copies, 0 the vector
-// loop), blocks the grid (the number of shares, at most the chunks).
+// idx [B] int32; blocks: the grid (the number of shares, at most the
+// chunks).
 extern "C" int pose6d_gather_rows_u32(const void* src, const void* idx, void* out, int N,
-                                      int B, int R, int bulk, int blocks, void* stream) {
+                                      int B, int R, int blocks, void* stream) {
   if (B == 0) return static_cast<int>(cudaSuccess);
   if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long vpr = R / 4, total = vpr * B;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* src4 = static_cast<const uint4*>(src);
-  const auto* idx32 = static_cast<const int*>(idx);
-  auto* out4 = static_cast<uint4*>(out);
-  if (bulk) {
-    cudaError_t err = cudaFuncSetAttribute(gather_bulk_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, BULK_SMEM);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gather_bulk_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gather_bulk_kernel<<<blocks, 32, BULK_SMEM, s>>>(src4, idx32, out4, N, vpr, total);
-  } else {
-    gather_loop_kernel<<<blocks, LOOP_THREADS, 0, s>>>(src4, idx32, out4, N, vpr, total);
-  }
+  const long long vpr = R / 4;
+  gather_rows_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), static_cast<const int*>(idx), static_cast<uint4*>(out), N,
+      vpr, vpr * B);
   return static_cast<int>(cudaGetLastError());
 }

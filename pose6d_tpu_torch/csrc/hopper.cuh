@@ -1,6 +1,6 @@
-// The Hopper (sm_90a) PTX that more than one kernel uses: shared-memory
-// addresses, 16-byte cp.async, mbarrier waits, and the wgmma descriptor,
-// fences and groups (stage_wgmma.cu, stem_tc.cu, gather.cu).
+// The Hopper (sm_90a) PTX that both wgmma kernels use (stage_wgmma.cu,
+// stem_tc.cu): shared-memory addresses, 16-byte cp.async, and the wgmma
+// descriptor, fences and groups.
 #pragma once
 
 #include <cstdint>
@@ -17,41 +17,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid = true) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Make this thread's generic-proxy writes to shared memory (st.shared,
-// cp.async) visible to the async proxy (wgmma operands, bulk copies).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of `bar` with this parity has completed; every lane
-// of the warp waits. A phase that never completes is a bug: trap after ~2 s
-// rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (!mbar_try_wait(bar, parity)) {
-    const long long t0 = clock64();
-    while (!mbar_try_wait(bar, parity))
-      if (clock64() - t0 > (1ll << 32)) __trap();
-  }
-  __syncwarp();
 }
 
 // A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start

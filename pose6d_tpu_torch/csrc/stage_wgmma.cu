@@ -97,6 +97,10 @@ struct Params {
 
 using namespace pose6d_ptx;
 
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
@@ -104,6 +108,26 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // Arrive on `bar` once this thread's cp.async copies so far have landed.
 __device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of `bar` with this parity has completed. A phase that
+// never completes is a bug: trap after ~2 s rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (!mbar_try_wait(bar, parity)) {
+    const long long t0 = clock64();
+    while (!mbar_try_wait(bar, parity))
+      if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+  __syncwarp();
 }
 
 // atomicAdd(ticket, 1) with acquire-release ordering at device scope; returns

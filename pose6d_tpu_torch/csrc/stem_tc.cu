@@ -107,6 +107,16 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Make this thread's cp.async writes to shared memory visible to wgmma,
+// which reads its operands through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(lo, 0.f), fmaxf(hi, 0.f));
   return *reinterpret_cast<const uint32_t*>(&v);

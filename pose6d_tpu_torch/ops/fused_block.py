@@ -10,11 +10,10 @@ behind its own launch count), in f32 on CUDA-core FMAs (csrc/stage.cu), in
 bf16 on the tensor cores (csrc/stage_wgmma.cu, tiled and split as
 `stage_plan` says). For a CPU tensor it runs its plain PyTorch version,
 `reference_stem` / `reference_layer1` / `reference_stage`; any other device
-raises. Kernels and plain versions take the
-same packed weights and keep the TPU kernels' numeric contract: f32
-accumulation, bias and residual added in f32, activations rounded to the
-compute type (the dtype of x) at every conv output that the TPU kernel
-rounded.
+raises. Kernels and plain versions take the same packed weights and keep
+the TPU kernels' numeric contract: f32 accumulation, bias and residual
+added in f32, activations rounded to the compute type (the dtype of x) at
+every conv output that the TPU kernel rounded.
 
 Layouts are NHWC like the JAX package: stem [B,224,224,C] -> [B,56,56,64]
 (C = 3 for rgb towers, 1 for the rgbd depth tower); stage n [B,h,w,cin] ->

@@ -9,8 +9,9 @@ batch by index (train/loop.expand_device_batch).
 `gather_rows_u32` launches the CUDA kernel (csrc/gather.cu, a persistent
 copy: the output's 16 KB chunks dealt round-robin to a grid sized to the
 card, `gather_shares`) for a CUDA tensor and runs the plain version
-`_gather_rows_plain` for a CPU tensor; any other device raises. Words are int32 or uint32 (torch's uint32 has few
-kernels, so the plain version gathers an int32 view). Both are pure word
+`_gather_rows_plain` for a CPU tensor; any other device raises. Words are
+int32 or uint32 (torch's uint32 has few kernels, so the plain version
+gathers an int32 view). Both are pure word
 moves, bit-exact with `src[idx]`. Indices outside [0, N) clamp into it, in
 the kernel and in the plain version alike, as JAX's indexing gather
 clamps: no index reads outside the buffer, and checking them would cost a
@@ -34,13 +35,9 @@ import torch
 from .. import _build
 
 LANES = 128  # a row is a whole number of 128-word lines, as on the TPU
-# The kernel's copy engine: Hopper bulk copies through a shared-memory ring
-# (True) or a 16-byte vector loop (False, the wrapper's); chip_smoke.py
-# times both, and ops/gather_sweep.py each at other grids
-BULK = False
-# Blocks of each engine the grid gives an SM: all that fit at once (bulk:
-# its 64 KB ring; loop: 8 x 256 threads at 32 registers)
-BLOCKS_PER_SM = {True: 3, False: 8}
+# The kernel's grid: blocks per SM, all that fit at once (8 x 256 threads at
+# 32 registers; ops/gather_sweep.py times the others)
+BLOCKS_PER_SM = 8
 CHUNK_VECS = 1024  # 16-byte vectors of a chunk, the unit of the shares (16 KB)
 
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32}
@@ -87,13 +84,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch_gather(src, idx, out, stream: int, bulk: bool = BULK,
-                   blocks_per_sm: int | None = None) -> None:
-    per_sm = BLOCKS_PER_SM[bulk] if blocks_per_sm is None else blocks_per_sm
-    blocks = gather_blocks(out.numel() // 4, _sm_count(src.device) * per_sm)
+def _launch_gather(src, idx, out, stream: int, blocks_per_sm: int = BLOCKS_PER_SM) -> None:
+    blocks = gather_blocks(out.numel() // 4, _sm_count(src.device) * blocks_per_sm)
     code = _build.lib().pose6d_gather_rows_u32(
         src.data_ptr(), idx.data_ptr(), out.data_ptr(), src.shape[0], idx.shape[0],
-        src.shape[1], int(bulk), blocks, stream)
+        src.shape[1], blocks, stream)
     _build.check(code, "gather_rows_u32")
 
 

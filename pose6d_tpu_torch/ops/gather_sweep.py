@@ -1,21 +1,19 @@
-"""Time the frame gather's two copy engines on the card at other grids.
+"""Time the frame gather on the card at other grids.
 
     python -m pose6d_tpu_torch.ops.gather_sweep [--batch 32 ...] [--frames 256]
 
 On seeded resident stores of LineMOD's 640x480 frames as 32-bit words (RGB
-rows of 230,400 words, depth rows of 153,600), for each engine of
-csrc/gather.cu (bulk copies through a shared-memory ring, the 16-byte
-vector loop) and each number of blocks per SM, the gather of `batch` rows:
+rows of 230,400 words, depth rows of 153,600), for each number of blocks
+per SM of csrc/gather.cu's grid, the gather of `batch` rows:
 "cold", cycling through the disjoint batches of one permutation of the
 frames, as a train epoch draws them (each run reads frames that the last
 runs did not, so its source is not in the 50 MB L2), and "warm", the same
 batch every run; beside them index_select, the library call, in both
 modes, and a contiguous copy of the same bytes (copy_ of `batch` whole
 rows: what the card's copy rate allows a gather). Each output is held bit
-for bit against the plain version first.
-Times are CUDA-event medians of single launches behind a ~2 ms spin (the
-launch's host path is hidden); BLOCKS_PER_SM and BULK in ops/gather_frames.py
-were chosen from this table. Needs a CUDA card and nvcc.
+for bit against the plain version first. Times are CUDA-event medians of single launches behind a ~2 ms spin (the
+launch's host path is hidden); BLOCKS_PER_SM in ops/gather_frames.py was
+chosen from this table. Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -73,17 +71,18 @@ def sweep(batch: int, frames: int, seed: int = 0) -> list[str]:
         lines.append(f"{kind}: bound {bound:.5f}; index_select {lib[0]:.4f} / {lib[1]:.4f}; "
                      f"contiguous copy_ {copy[0]:.4f} / {copy[1]:.4f}")
         want = gf._gather_rows_plain(words, batches[0])
-        for bulk, per_sm in itertools.product((True, False), BLOCKS_PER_SM):
-            def launch(idx, bulk=bulk, per_sm=per_sm):
-                gf._launch_gather(words, idx, out, stream, bulk=bulk, blocks_per_sm=per_sm)
+        for per_sm in BLOCKS_PER_SM:
+            def launch(idx, per_sm=per_sm):
+                gf._launch_gather(words, idx, out, stream, blocks_per_sm=per_sm)
 
             launch(batches[0])
             torch.cuda.synchronize()
-            assert torch.equal(out, want), (kind, bulk, per_sm)
+            if not torch.equal(out, want):
+                raise RuntimeError(f"gather ({kind} words, {per_sm} blocks per SM) differs "
+                                   f"from its plain version")
             cold, warm = timed(launch)
-            mark = " (wrapper's)" if (bulk == gf.BULK and per_sm == gf.BLOCKS_PER_SM[bulk]) else ""
-            lines.append(f"  {'bulk' if bulk else 'loop'} x{per_sm} per SM{mark}: "
-                         f"{cold:.4f} / {warm:.4f}")
+            mark = " (wrapper's)" if per_sm == gf.BLOCKS_PER_SM else ""
+            lines.append(f"  x{per_sm} per SM{mark}: {cold:.4f} / {warm:.4f}")
         del words
     return lines
 

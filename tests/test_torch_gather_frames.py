@@ -109,7 +109,7 @@ def test_gather_frames_refuses_non_contiguous():
             tgf.gather_frames(src, torch.tensor([0, 1]))
 
 
-SLOTS = (132 * 4, 132 * 3, 1)  # an H100's loop (4 a SM) and bulk (3 a SM) blocks; one block
+SLOTS = (132 * 8, 132 * 3, 1)  # an H100's slots (8 blocks a SM), fewer, one block
 
 
 @pytest.mark.parametrize("slots", SLOTS)

@@ -11,8 +11,8 @@ bf16 launches bit for bit equal under split-K), the bf16 wgmma GEMM alone
 in each geometry a stage gives it (dense 1x1, 3x3 at stride 1 and 2, the
 conv3 + shortcut pair, the identity residual; with and without split-K),
 the ADD-S nearest-point search and the frame-row gather (bit for bit
-equal to its plain version with both copy engines, at batches 1, 3, 32 and
-33 of 128- to 230,400-word rows, with repeated and clamped indices). Beside
+equal to its plain version at batches 1, 3, 32 and 33 of 128- to
+230,400-word rows, with repeated and clamped indices). Beside
 them: each kernel launches on its input's card when another card is
 current (skipped below two cards), one device-preprocess train step of
 each PoseNet variant is finite on the card, and the rgbd train epoch
@@ -388,14 +388,15 @@ def test_train_epoch_never_waits_for_the_card(cuda):
     assert n == 2 and torch.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("bulk", [True, False])
+@pytest.mark.parametrize("blocks_per_sm", [8, 1])
 @pytest.mark.parametrize("r", [128, 384, 153_600, 230_400])
 @pytest.mark.parametrize("batch", [1, 3, 32, 33])
-def test_gather_kernel_shares(cuda, batch, r, bulk):
-    """Both copy engines of the persistent gather at the batches and row
-    lengths of the CPU share-plan test (LineMOD's depth and RGB rows among
-    them): bit for bit equal to the plain version, with repeated indices and
-    indices outside [0, N) that clamp."""
+def test_gather_kernel_shares(cuda, batch, r, blocks_per_sm):
+    """The persistent gather at the batches and row lengths of the CPU
+    share-plan test (LineMOD's depth and RGB rows among them), with the
+    wrapper's grid and with one block per SM (many chunks per block): bit
+    for bit equal to the plain version, with repeated indices and indices
+    outside [0, N) that clamp."""
     n = 40
     words = torch.randint(-2**31, 2**31 - 1, (n, r), dtype=torch.int32,
                           generator=torch.Generator().manual_seed(r)).to(cuda)
@@ -405,7 +406,8 @@ def test_gather_kernel_shares(cuda, batch, r, bulk):
     idx[1::4] = np.resize([-7, n, 10**6, -1], len(idx[1::4]))  # clamp to 0 or n - 1
     idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
     out = torch.empty(batch, r, dtype=torch.int32, device=cuda)
-    gf._launch_gather(words, idx, out, torch.cuda.current_stream().cuda_stream, bulk=bulk)
+    gf._launch_gather(words, idx, out, torch.cuda.current_stream().cuda_stream,
+                      blocks_per_sm=blocks_per_sm)
     torch.cuda.synchronize()
     assert torch.equal(out, gf._gather_rows_plain(words, idx))
 
