@@ -30,7 +30,13 @@ Phases, each printed on its own line with its seconds:
      indices outside [0, N) that clamp) bit for bit equal to its plain
      version, and is timed at B = 32, each run on the next batch of a
      permutation of the frames, as a train epoch draws them (its source
-     not in L2);
+     not in L2); the nearest-point kernel at batch 8 (the serving add's)
+     and 32 (the eval step's), 500 points, within 1e-7 m of float64 cdist
+     and bit-equal over two launches and under a forced plan other than
+     addmin_plan's. The stem and addmin rows also carry the launch floor:
+     floor_ms, the same event timing around one empty launch, and
+     stream_ms, 50 launches back to back in one event pair over 50, of the
+     kernel and of the empty launch;
   4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
      frames, two ResNet50 towers at 224, attention dim 2048) with seeded
      weights, folded bf16 towers with the stem and layer1 kernels, over 3
@@ -59,7 +65,8 @@ Phases, each printed on its own line with its seconds:
      and deployed translation); prints the step time (CUDA events over the
      4 steps) as a smoke reading;
   8. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add and train runs.
+     sums over the slice, add and train runs, addmin's by shape (batch 8
+     in phase 6, the eval step's 32 in phase 7).
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
 the script exits non-zero without it. f32 comparisons run with TF32 off
@@ -142,6 +149,22 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def floor_ms() -> float:
+    """cuda_ms of one empty launch (torch.cuda._sleep(1)): what the event
+    pair and a launch cost with no work in it."""
+    return cuda_ms(lambda: torch.cuda._sleep(1))
+
+
+def launch_costs(fn) -> dict:
+    """The floor beside a small kernel's time: floor_ms, and the time per
+    launch of 50 back to back in one event pair (addmin_sweep.stream_ms) of
+    the kernel and of the empty launch."""
+    from pose6d_tpu_torch.ops.addmin_sweep import stream_ms
+
+    return {"floor_ms": floor_ms(), "stream_ms": stream_ms(fn),
+            "floor_stream_ms": stream_ms(lambda: torch.cuda._sleep(1))}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -380,7 +403,7 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
     timed beside the plain version, a library computation and its bound."""
     import torch.nn.functional as F
 
-    from pose6d_tpu_torch.ops import addmin, fused_block as fb
+    from pose6d_tpu_torch.ops import fused_block as fb
     from pose6d_tpu_torch.ops.quant import fold_bn_resnet
 
     rows = []
@@ -413,6 +436,7 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
             "library_ms": cuda_ms(lambda: F.max_pool2d(
                 F.relu(F.conv2d(x_nchw, w_lib, b_lib, 2, 3)), 3, 2, 1)),
             "bf16_mean_err": mean_e, "bf16_max_err": max_e,
+            **launch_costs(lambda: fb.fused_stem(x, wbf)),
         })
         if C == 3:
             l1_tree, l1_in = tree, out
@@ -441,27 +465,11 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
     })
     rows += stage_rows(geo_pipe, tower_inputs["rgb"])
 
-    # addmin on centred model points under two seeded poses per sample
-    pred, gt = seeded_point_pairs(rng, tower_inputs["rgb"].device)
-    got = addmin.pairwise_min_dist_kernel(pred, gt)
-    want = addmin._pairwise_min_dist(pred, gt)
-    err = (got - want).abs().max().item()
-    exact = torch.cdist(pred.double(), gt.double()).amin(-1)
-    err_exact = (got.double() - exact).abs().max().item()
-    check(err <= ADDMIN_ATOL, f"addmin: max err vs plain {err:.3g} > {ADDMIN_ATOL}")
-    check(err_exact <= 1e-7, f"addmin: max err vs f64 {err_exact:.3g} > 1e-7")
-    sync(pred.device)
-    B, P, _ = pred.shape
-    b_ms, b_by = bound_ms(nbytes(pred, gt, got), 9.0 * B * P * P, f32)
-    rows.append({
-        "name": "pairwise_min_dist", "route": "cuda", "source": "pose6d_tpu_torch/csrc/addmin.cu",
-        "replaces": "pose6d_tpu/ops/pallas_addmin.py:67", "max_abs_err": err,
-        "ms": cuda_ms(lambda: addmin.pairwise_min_dist_kernel(pred, gt)),
-        "plain_ms": cuda_ms(lambda: addmin._pairwise_min_dist(pred, gt)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.cdist(pred, gt).amin(-1)),
-        "f64_max_err": err_exact,
-    })
+    # addmin on centred model points under two seeded poses per sample, at
+    # the serving add's batch and the train eval step's
+    dev = tower_inputs["rgb"].device
+    rows.append(addmin_row(*seeded_point_pairs(rng, dev)))
+    rows.append(addmin_row(*seeded_point_pairs(np.random.default_rng(SEED + 32), dev, 32)))
     rows.append(gather_row(store, rng))
     for r in rows:
         if "bf16_mean_err" in r:
@@ -472,10 +480,62 @@ def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
             extra = (f"bit-equal; depth words ms {r['depth_ms']:.4f} plain_ms "
                      f"{r['depth_plain_ms']:.4f} library_ms {r['depth_library_ms']:.4f} "
                      f"bound_ms {r['depth_bound_ms']:.5f}")
+        if "floor_ms" in r:
+            extra += (f"; floor_ms {r['floor_ms']:.4f} stream_ms {r['stream_ms']:.5f} "
+                      f"(empty launch {r['floor_stream_ms']:.5f})")
         log(f"  {r['name']}: f32 max_abs_err {r['max_abs_err']:.3g}, {extra}  "
             f"ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
             f"library_ms {r['library_ms']:.4f}  bound_ms {r['bound_ms']:.5f} ({r['bound_by']})")
     return rows
+
+
+def addmin_row(pred, gt) -> dict:
+    """The nearest-point kernel on [B, 500, 3] pairs: against float64 cdist
+    within 1e-7 m, and the plain version (the expansion) within ADDMIN_ATOL
+    at the serving batch (as before the redesign), else (the eval step's
+    batch of 32, added with it) within the expansion's own envelope in d^2,
+    addmin.expansion_d2_atol: on these inputs the plain version strays past
+    1e-6 m from float64 near zero (tests/test_torch_addmin_plan.py). Then
+    bit-equal over two launches and under a forced plan that addmin_plan
+    never picks (3 splits), and timed beside the plain version, cdist and
+    its bound, with the floor."""
+    from pose6d_tpu_torch.ops import addmin
+
+    B, P, _ = pred.shape
+    plan, other = addmin.addmin_plan(B, P), addmin.AddminPlan(64, 4, 3)
+    got = addmin.pairwise_min_dist_kernel(pred, gt)
+    want = addmin._pairwise_min_dist(pred, gt)
+    err = (got - want).abs().max().item()
+    exact = torch.cdist(pred.double(), gt.double()).amin(-1)
+    err_exact = (got.double() - exact).abs().max().item()
+    what = f"addmin [{B}, {P}, 3]"
+    check(err_exact <= 1e-7, f"{what}: max err vs f64 {err_exact:.3g} > 1e-7")
+    if B == BATCH:
+        check(err <= ADDMIN_ATOL, f"{what}: max err vs plain {err:.3g} > {ADDMIN_ATOL}")
+    else:
+        err_d2 = (got.double() ** 2 - want.double() ** 2).abs().max().item()
+        tol = addmin.expansion_d2_atol(pred, gt)
+        check(err_d2 <= tol, f"{what}: max err vs plain in d^2 {err_d2:.3g} > {tol:.3g} m^2")
+    check(torch.equal(addmin.pairwise_min_dist_kernel(pred, gt), got),
+          f"{what}: two launches differ")
+    check(torch.equal(addmin.pairwise_min_dist_kernel(pred, gt, plan=other), got),
+          f"{what}: plans {plan} and {other} differ")
+    sync(pred.device)
+    b_ms, b_by = bound_ms(nbytes(pred, gt, got), 9.0 * B * P * P, torch.float32)
+    log(f"  addmin [{B}, {P}, 3] plan {plan}: {plan.blocks(B, P)} blocks x {plan.threads} "
+        f"threads; bit-equal over two launches and under {other}")
+    return {
+        "name": "pairwise_min_dist" if B == BATCH else f"pairwise_min_dist_b{B}", "route": "cuda",
+        "source": "pose6d_tpu_torch/csrc/addmin.cu",
+        "replaces": "pose6d_tpu/ops/pallas_addmin.py:67", "max_abs_err": err,
+        "shape": [B, P, 3],
+        "ms": cuda_ms(lambda: addmin.pairwise_min_dist_kernel(pred, gt)),
+        "plain_ms": cuda_ms(lambda: addmin._pairwise_min_dist(pred, gt)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.cdist(pred, gt).amin(-1)),
+        "f64_max_err": err_exact,
+        **launch_costs(lambda: addmin.pairwise_min_dist_kernel(pred, gt)),
+    }
 
 
 def seeded_object_models(rng, device):
@@ -502,17 +562,17 @@ def seeded_poses(rng, n, device):
     return q.to(device), torch.from_numpy(t).to(device)
 
 
-def seeded_point_pairs(rng, dev):
+def seeded_point_pairs(rng, dev, batch: int = BATCH):
     """Kernel-phase addmin inputs: model points under a GT pose and a pose
     a few degrees and millimetres off it, centred on the GT cloud."""
     from pose6d_tpu_torch.geometry.quat import quat_normalize, quat_to_mat
 
     models = seeded_object_models(rng, dev)
-    q, t = seeded_poses(rng, BATCH, dev)
-    dq = torch.from_numpy(rng.normal(0, 0.03, (BATCH, 4)).astype(np.float32)).to(dev)
+    q, t = seeded_poses(rng, batch, dev)
+    dq = torch.from_numpy(rng.normal(0, 0.03, (batch, 4)).astype(np.float32)).to(dev)
     q2 = quat_normalize(q + dq)
-    t2 = t + torch.from_numpy(rng.normal(0, 0.005, (BATCH, 3)).astype(np.float32)).to(dev)
-    pts = models.points[torch.arange(BATCH, device=dev) % N_OBJ]
+    t2 = t + torch.from_numpy(rng.normal(0, 0.005, (batch, 3)).astype(np.float32)).to(dev)
+    pts = models.points[torch.arange(batch, device=dev) % N_OBJ]
     gt = torch.einsum("bpj,bij->bpi", pts, quat_to_mat(q)) + t[:, None]
     pred = torch.einsum("bpj,bij->bpi", pts, quat_to_mat(q2)) + t2[:, None]
     c = gt.mean(1, keepdim=True)
@@ -933,6 +993,7 @@ def main() -> int:
         for variant, out in outs.items():
             log(f"  {variant}:")
             launches["pairwise_min_dist"] += phase_add(out, rng)
+    add_launches = launches["pairwise_min_dist"]
     log(f"[phase 6 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
@@ -945,12 +1006,16 @@ def main() -> int:
         f"(8 epoch + 2 eval batch), addmin {counts['pairwise_min_dist']} "
         f"({time.perf_counter() - t0:.1f}s)")
 
+    # addmin's launches by shape: batch 8 in phase 6, the eval step's 32 in phase 7
+    by_shape = {"pairwise_min_dist": add_launches,
+                "pairwise_min_dist_b32": counts["pairwise_min_dist"]}
     for r in rows:
-        r["launches"] = launches.get(r["name"], 0)
-        if r["name"] == "pairwise_min_dist":  # phase 3's shape and the eval step's
+        r["launches"] = by_shape.get(r["name"], launches.get(r["name"], 0))
+        if r["name"] == "pairwise_min_dist_b32":  # phase 3's inputs and the eval step's
             r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
     log(f"[phase 8 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
@@ -958,6 +1023,7 @@ def main() -> int:
         + f"; train rgbd {train['step_ms']:.3f} ms/step"
         + f" ({time.perf_counter() - t_all:.1f}s total)")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                 **{k: r[k] for k in extra if k in r},
                                  **{k: v for k, v in r.items() if k.startswith("depth_")}}
                                 for r in rows]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,7 +10,9 @@ batches 1, 2, 3, 8 and 32, stage 1 bit for bit equal to layer1, and two
 bf16 launches bit for bit equal under split-K), the bf16 wgmma GEMM alone
 in each geometry a stage gives it (dense 1x1, 3x3 at stride 1 and 2, the
 conv3 + shortcut pair, the identity residual; with and without split-K),
-the ADD-S nearest-point search and the frame-row gather (bit for bit
+the ADD-S nearest-point search (also at B 1/8/32 x P 1 to 5000, bit-equal under
+every forced plan and across launches, and bit for bit the first index at
+the smallest d^2 on ties planted in a padded cloud) and the frame-row gather (bit for bit
 equal to its plain version at batches 1, 3, 32 and 33 of 128- to
 230,400-word rows, with repeated and clamped indices). Beside
 them: each kernel launches on its input's card when another card is
@@ -20,7 +22,9 @@ never waits for the card (torch.cuda.set_sync_debug_mode("error")).
 Tolerances: f32 kernel vs plain max error <= 1e-4 * max(1, |plain|max)
 (different f32 summation order); bf16 kernel vs the f32 plain version
 within the bf16 envelope (mean error < 0.02 std, max < 0.25 std);
-nearest-point distances within 1e-6 m of the plain expansion."""
+nearest-point distances within 1e-7 m of float64 cdist and, on the first
+test's inputs, within 1e-6 m of the plain expansion (elsewhere within the
+expansion's own envelope in d^2, addmin.expansion_d2_atol)."""
 
 import numpy as np
 import pytest
@@ -32,6 +36,7 @@ from pose6d_tpu_torch.ops import addmin
 from pose6d_tpu_torch.ops import fused_block as fb
 from pose6d_tpu_torch.ops import gather_frames as gf
 from pose6d_tpu_torch.train import loop as tloop
+from torch_port_utils import addmin_expected, padded_cloud, plant_ties
 
 pytestmark = pytest.mark.gpu
 
@@ -258,6 +263,66 @@ def test_addmin_kernel(cuda, P):
     assert (got - addmin._pairwise_min_dist(pred, gt)).abs().max().item() <= 1e-6
     exact = torch.cdist(pred.double(), gt.double()).amin(-1)
     assert (got.double() - exact).abs().max().item() <= 1e-7
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("P", [1, 129, 500, 2048, 5000])
+def test_addmin_kernel_shapes(cuda, P, B):
+    """Within 1e-7 m of float64 cdist, and of the plain version within the
+    expansion's own envelope in d^2 (addmin.expansion_d2_atol): at these
+    sizes the plain version itself strays past 1e-6 m from float64 where a
+    point's nearest is close (1.1e-6 m at B 32, P 2048 on an H100)."""
+    rng = np.random.default_rng(P + B)
+    pred = torch.from_numpy(rng.normal(0, 0.05, (B, P, 3)).astype(np.float32)).to(cuda)
+    gt = torch.from_numpy(rng.normal(0, 0.05, (B, P, 3)).astype(np.float32)).to(cuda)
+    got = addmin.pairwise_min_dist_kernel(pred, gt)
+    torch.cuda.synchronize()
+    exact = torch.cdist(pred.double(), gt.double()).amin(-1)
+    assert (got.double() - exact).abs().max().item() <= 1e-7
+    plain = addmin._pairwise_min_dist(pred, gt).double()
+    assert (got.double() ** 2 - plain ** 2).abs().max().item() <= addmin.expansion_d2_atol(pred, gt)
+
+
+ADDMIN_PLANS = (addmin.AddminPlan(8, 1, 1), addmin.AddminPlan(8, 1, 4),
+                addmin.AddminPlan(16, 2, 16), addmin.AddminPlan(64, 4, 3),
+                addmin.AddminPlan(32, 2, 5), addmin.AddminPlan(12, 4, 7),
+                addmin.AddminPlan(128, 4, 32), addmin.AddminPlan(256, 1, 4))
+
+
+@pytest.mark.parametrize("B,P", [(8, 500), (32, 500), (8, 2048), (3, 1100)])
+def test_addmin_plans_bit_equal(cuda, B, P):
+    """Every forced plan, and two launches of the default one, give the same
+    bits: the splits merge by (d^2, index)."""
+    rng = np.random.default_rng(B * P)
+    gt = torch.from_numpy(np.stack([padded_cloud(rng, P, P * 3 // 4) for _ in range(B)])).to(cuda)
+    pred = (gt + torch.from_numpy(rng.normal(0, 0.004, (B, P, 3)).astype(np.float32))
+            .to(cuda)).contiguous()
+    want = addmin.pairwise_min_dist_kernel(pred, gt)
+    assert torch.equal(addmin.pairwise_min_dist_kernel(pred, gt), want)
+    for plan in ADDMIN_PLANS:
+        assert torch.equal(addmin.pairwise_min_dist_kernel(pred, gt, plan=plan), want), plan
+    torch.cuda.synchronize()
+    assert (want.double() - torch.cdist(pred.double(), gt.double()).amin(-1)).abs().max() <= 1e-7
+
+
+def test_addmin_ties_on_a_padded_cloud(cuda):
+    """A cloud padded by repetition, as load_object_models pads it, with
+    pairs of GT points planted at equal f32 d^2 but different distances
+    (the farther first): under every plan the kernel returns the bits of
+    the first index at the smallest d^2 (tests/torch_port_utils
+    addmin_expected, an exact emulation of its arithmetic)."""
+    rng = np.random.default_rng(5)
+    B, P = 2, 300
+    gt = np.stack([padded_cloud(rng, P, 200) for _ in range(B)])
+    pred = (gt[:, rng.permutation(P)] + rng.normal(0, 0.004, (B, P, 3))).astype(np.float32)
+    for b in range(B):
+        for i in range(40):
+            j1, j2 = sorted(rng.choice(P, 2, replace=False))
+            assert plant_ties(rng, pred[b, i], gt[b], j1, j2)
+    want = torch.from_numpy(addmin_expected(pred, gt)).to(cuda)
+    pred_t, gt_t = torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda)
+    for plan in (None,) + ADDMIN_PLANS:
+        assert torch.equal(addmin.pairwise_min_dist_kernel(pred_t, gt_t, plan=plan), want), plan
 
 
 def test_kernels_refuse_non_contiguous(cuda):

@@ -343,3 +343,75 @@ def assert_eval_parity(want, got):
     for k in ("add_01d_acc", "add_01d_acc_deploy", "count"):
         assert float(got[k]) == float(want[k]), k
     assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * max(1.0, abs(float(want["loss"])))
+
+
+# ------------------------------------------------------------------ addmin
+
+def fma_f32(a, b, c):
+    """a * b + c rounded once to float32, as the card's fmaf: a * b is exact
+    in float64, TwoSum gives the float64 sum's error, and a sum that lands
+    on a float32 midpoint rounds by that error's sign."""
+    ab = a.astype(np.float64) * b.astype(np.float64)
+    c = np.asarray(c, np.float64)
+    s = ab + c
+    bb = s - ab
+    e = (ab - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r, np.float32(np.inf), np.float32(-np.inf)))
+    mid = (s != r) & (s - r.astype(np.float64) == other.astype(np.float64) - s) & (e != 0)
+    up = np.maximum(r, other)
+    down = np.minimum(r, other)
+    return np.where(mid, np.where(e > 0, up, down), r).astype(np.float32)
+
+
+def kernel_d2(pred, gt):
+    """csrc/addmin.cu's pair_d2 for every pair, bit for bit:
+    [..., Pp, 3] x [..., Pg, 3] float32 -> [..., Pp, Pg] float32."""
+    d = pred[..., :, None, :].astype(np.float32) - gt[..., None, :, :].astype(np.float32)
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    return fma_f32(dz, dz, fma_f32(dy, dy, dx * dx))
+
+
+def kernel_recompute(p, q) -> np.float32:
+    """The kernel's final distance of one pair: float64 differences,
+    dx*dx and two fmas each rounded to float64, sqrt, one float32 rounding."""
+    from fractions import Fraction
+
+    dx, dy, dz = (float(a) - float(b) for a, b in zip(p, q))
+    t = dx * dx
+    t = float(Fraction(dy) * Fraction(dy) + Fraction(t))
+    t = float(Fraction(dz) * Fraction(dz) + Fraction(t))
+    return np.float32(np.sqrt(t))
+
+
+def addmin_expected(pred, gt):
+    """What the kernel returns, bit for bit: for each predicted point, the
+    first GT point at the smallest kernel_d2, and its distance as
+    kernel_recompute gives it. [B, P, 3] x [B, P, 3] -> [B, P] float32."""
+    arg = kernel_d2(pred, gt).argmin(-1)
+    return np.array([[kernel_recompute(pred[b, i], gt[b, arg[b, i]])
+                      for i in range(pred.shape[1])] for b in range(pred.shape[0])], np.float32)
+
+
+def padded_cloud(rng, P: int, n_real: int, scale: float = 0.05):
+    """A model cloud as load_object_models pads it: n_real points, then
+    P - n_real repeats of them drawn with replacement. [P, 3] float32."""
+    pts = rng.normal(0, scale, (n_real, 3))
+    return np.concatenate([pts, pts[rng.choice(n_real, P - n_real, replace=True)]]).astype(np.float32)
+
+
+def plant_ties(rng, p, gt, j_first: int, j_second: int, radius: float = 0.002) -> bool:
+    """Put two GT points near p at j_first < j_second with equal kernel_d2
+    but distances that round to different float32 values, the one at
+    j_first the farther; True if such a pair was found."""
+    u = rng.normal(size=(512, 3))
+    cand = (p + radius * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(np.float32)
+    d2 = kernel_d2(p[None].astype(np.float32), cand)[0]
+    dist = np.array([kernel_recompute(p, q) for q in cand])
+    for v in np.unique(d2):
+        idx = np.flatnonzero(d2 == v)
+        if len(idx) > 1 and dist[idx].min() != dist[idx].max():
+            far, near = idx[dist[idx].argmax()], idx[dist[idx].argmin()]
+            gt[j_first], gt[j_second] = cand[far], cand[near]
+            return True
+    return False
