@@ -14,45 +14,60 @@ Phases, each printed on its own line with its seconds:
      HGMMA instructions in each bf16 stage and stem kernel (cuobjdump
      -sass), which must not be 0;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the serving path's shapes (batch 8), in f32 with a tight tolerance and
-     in bf16 against the f32 plain version with a bf16 envelope; then its
-     time (CUDA events, median of 20 after warm-up) beside the plain
-     version's, one PyTorch library computation of the same function and
-     the card's bound for the work. Two bf16 launches of the stem (C=3 and
-     C=1) must be equal bit for bit. The stage kernel runs stages 1-4 on the
+     the serving path's shapes (batch 8, and the stem C=3 and layer1 again
+     at the rgb multi-object path's batch 32), in f32 with a tight
+     tolerance and in bf16 against the f32 plain version with a bf16
+     envelope; then its time (CUDA events, median of 20 after warm-up)
+     beside the plain version's, one PyTorch library computation of the
+     same function and the card's bound for the work. Two bf16 launches of
+     the stem and of layer1 must be equal bit for bit. The stage kernel runs stages 1-4 on the
      rgbd_geometric tower's own activations, and fused_layer1 (the same
      kernel at stage 1 behind the rgbd path's own launch count) must equal
-     fused_stage at stage 1 bit for bit; each stage prints its bf16 plan
-     (tile N, tiles and K splits per GEMM) and two bf16 launches of it must
-     be equal bit for bit (split-K reduces in split order); the frame
-     gather moves B = 1, 3 and 32 rows of the train phase's resident store
-     (256 frames at 640x480, RGB and depth words; repeated indices and
+     fused_stage at stage 1 bit for bit; each stage and layer1 prints its
+     bf16 plan (tile N, tiles and K splits per GEMM) and two bf16 launches
+     of it must be equal bit for bit (split-K reduces in split order); the
+     frame gather moves B = 1, 3 and 32 rows of the train phase's resident
+     store (256 frames at 640x480, RGB and depth words; repeated indices and
      indices outside [0, N) that clamp) bit for bit equal to its plain
      version, and is timed at B = 32, each run on the next batch of a
      permutation of the frames, as a train epoch draws them (its source
      not in L2); the nearest-point kernel at batch 8 (the serving add's)
-     and 32 (the eval step's), 500 points, within 1e-7 m of float64 cdist
-     and bit-equal over two launches and under a forced plan other than
-     addmin_plan's. The stem and addmin rows also carry the launch floor:
-     floor_ms, the same event timing around one empty launch, and
-     stream_ms, 50 launches back to back in one event pair over 50, of the
-     kernel and of the empty launch;
+     and 32 (the eval step's and the multi-object add's), 500 points,
+     within 1e-7 m of float64 cdist and bit-equal over two launches and
+     under a forced plan other than addmin_plan's. The stem, layer1, stage
+     and addmin rows also carry the launch floor: floor_ms, the same event
+     timing around one empty launch, and stream_ms, 50 launches back to
+     back in one event pair over 50, of the kernel and of the empty launch;
   4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
      frames, two ResNet50 towers at 224, attention dim 2048) with seeded
      weights, folded bf16 towers with the stem and layer1 kernels, over 3
      requests of 8 frames; checks outputs, launch counts (2 stem + 2 layer1
-     per request), equal boxes, and tower features and poses within a bf16
-     envelope against the float pipeline; prints the requests' host-clock
-     latency as a smoke reading, not a throughput;
+     per request, each at the pose batch), equal boxes, and tower features
+     and poses within a bf16 envelope against the float pipeline; prints
+     the requests' host-clock latency as a smoke reading, not a throughput;
   5. slice rgbd_geometric: the same for PosePipeline rgbd_geometric (one
      ResNet50 at 224, BN/ReLU rotation head, translation from the f32 depth
      crop at the box centre) with the stem and stage 1-2 kernels: 1 stem,
      1 stage-1 and 1 stage-2 launch per request, boxes and translations
      equal to the float pipeline's, features and rotations within the
      envelope;
-  6. add: ADD / ADD-S of each slice's poses against seeded ground truth
-     through the nearest-point kernel, against the plain version;
-  7. train rgbd: the device-resident train step at full width (two
+  6. slice rgb multi-object: PosePipeline rgb with max_objects 4,
+     conf_thresh 0, nms_pre_topk 64 and a bf16 detector (the JAX benchmark's
+     rgb_maxobj4 configuration), the stem and layer1 kernels: outputs
+     [8, 4, ...], 1 stem and 1 layer1 launch per request, each at batch 32;
+     the decode + NMS of one request's bf16 detector outputs on the card
+     under torch.cuda.set_sync_debug_mode("error"), with classes, validity
+     and scores bit-equal to the same call on CPU copies and boxes within
+     DECODE_BOX_ATOL;
+  7. slice rgbd_geometric letterbox: phase 5's pipelines on 1280x720
+     frames (720 does not divide the detector's stride 32, so they are
+     letterboxed onto the 640x640 canvas); the same checks, and the
+     windowed crop (CROP_WINDOW) against the full-frame crop on those
+     frames, f32 within F32_RTOL and bf16 within the bf16 envelope;
+  8. add: ADD / ADD-S of each slice's poses (all 32 of the multi-object
+     path's) against seeded ground truth through the nearest-point kernel,
+     against the plain version;
+  9. train rgbd: the device-resident train step at full width (two
      ResNet50 towers at 224, attention dim 2048, LayerNorm/GELU heads with
      their dropout; TrainConfig's defaults: batch 32, f32, lr 1e-4) from a
      seeded from-scratch init, on seeded uint8 frames and uint16 depth
@@ -64,9 +79,10 @@ Phases, each printed on its own line with its seconds:
      and depth per step) and 2 addmin launches in the eval step (learned
      and deployed translation); prints the step time (CUDA events over the
      4 steps) as a smoke reading;
-  8. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add and train runs, addmin's by shape (batch 8
-     in phase 6, the eval step's 32 in phase 7).
+ 10. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice, add and train runs, by the row of the batch they
+     ran at (the stem and layer1 at 32 in phase 6, at 8 elsewhere; addmin
+     at 8 in phase 8 and at 32 in phases 8 and 9).
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
 the script exits non-zero without it. f32 comparisons run with TF32 off
@@ -111,6 +127,10 @@ HOLD_CYCLES = 4_000_000  # ~2 ms of spin at the H100's clock, ahead of each time
 FEAT_REL_L2 = 0.05     # folded bf16 vs float f32 tower features, relative L2
 POSE_ATOL = 0.01       # folded bf16 vs float f32 poses: quaternion components, metres
 ADDMIN_ATOL = 1e-6     # metres, kernel (difference form) vs plain (expansion)
+MULTI_OBJECTS = 4      # rgb multi-object phase: poses per frame (the JAX benchmark's rgb_maxobj4)
+LB_H, LB_W = 720, 1280  # letterbox phase frames: 720 does not divide the stride 32
+CROP_WINDOW = 320      # the windowed crop's side in the letterbox phase's check
+DECODE_BOX_ATOL = 1e-4  # px, decode on the card vs on the CPU (the DFL softmax's exp)
 
 
 class CheckFailed(RuntimeError):
@@ -299,12 +319,21 @@ def library_stage(h, stage: int, lib_tree: dict):
     return h
 
 
+def log_plan(what: str, stage: int, batch: int) -> None:
+    """Print the bf16 stage kernel's plan of `stage` at `batch`."""
+    from pose6d_tpu_torch.ops.fused_block import stage_plan
+
+    log(f"  {what} plan at batch {batch} (GEMM: M x N x K, tile N, tiles x splits): "
+        + ", ".join(f"{g.name} {g.m}x{g.n}x{g.k1}{'+' + str(g.k2) if g.k2 else ''} "
+                    f"bn{g.bn} {g.tiles}x{g.splits}" for g in stage_plan(stage, batch)))
+
+
 def stage_rows(geo_pipe, rgb):
     """fused_stage for stages 1-4 on the rgbd_geometric tower: the stem
     kernel's output of the request's crops feeds stage 1, each stage's
     kernel output the next. f32 and bf16 against the plain version, stage 1
     bit-equal to fused_layer1 (the same kernel behind its own count), then
-    timed."""
+    timed, with the launch floor."""
     from pose6d_tpu_torch.ops import fused_block as fb
     from pose6d_tpu_torch.ops.quant import fold_bn_resnet
 
@@ -322,10 +351,7 @@ def stage_rows(geo_pipe, rgb):
         mean_e, max_e = compare_bf16(out, oracle, what)
         check(torch.equal(fb.fused_stage(x, wbf, stage), out),
               f"{what}: two bf16 launches on the same input differ")
-        log(f"  s{stage} plan at batch {x.shape[0]} (GEMM: M x N x K, tile N, tiles x splits): "
-            + ", ".join(f"{g.name} {g.m}x{g.n}x{g.k1}{'+' + str(g.k2) if g.k2 else ''} "
-                        f"bn{g.bn} {g.tiles}x{g.splits}"
-                        for g in fb.stage_plan(stage, x.shape[0])))
+        log_plan(f"s{stage}", stage, x.shape[0])
         if stage == 1:
             for xs, ws in ((x.float(), w32), (x, wbf)):
                 check(torch.equal(fb.fused_stage(xs, ws, 1), fb.fused_layer1(xs, ws)),
@@ -342,6 +368,7 @@ def stage_rows(geo_pipe, rgb):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(lambda: library_stage(x_nchw, stage, lib_tree)),
             "bf16_mean_err": mean_e, "bf16_max_err": max_e,
+            **launch_costs(lambda: fb.fused_stage(x, wbf, stage)),
         })
         x = out
     return rows
@@ -398,72 +425,98 @@ def gather_row(store, rng):
     return row
 
 
-def phase_kernels(pipe, geo_pipe, tower_inputs, store, rng):
-    """Each kernel against its plain version at the serving shapes, then
-    timed beside the plain version, a library computation and its bound."""
+def stem_row(tree, x, name: str) -> tuple[dict, torch.Tensor]:
+    """The stem kernel on the tower's own crops x [N, 224, 224, C]: f32 and
+    bf16 against the plain version, two bf16 launches bit-equal, then timed
+    beside the plain version, cuDNN's conv + ReLU + maxpool, its bound and
+    the launch floor. Returns the row and the bf16 output (layer1's input)."""
     import torch.nn.functional as F
 
     from pose6d_tpu_torch.ops import fused_block as fb
-    from pose6d_tpu_torch.ops.quant import fold_bn_resnet
 
-    rows = []
     bf16, f32 = torch.bfloat16, torch.float32
-    for C, name in ((3, "rgb_backbone"), (1, "depth_backbone")):
-        tree = fold_bn_resnet(getattr(pipe.posenet, name))
-        x = (tower_inputs["rgb"] if C == 3 else tower_inputs["depth"]).contiguous()
-        w32, wbf = fb.pack_stem_weights(tree, f32), fb.pack_stem_weights(tree, bf16)
-        err = compare_f32(fb.fused_stem(x.float(), w32), fb.reference_stem(x.float(), w32),
-                          f"fused_stem C={C}")
-        oracle = fb.reference_stem(x.float(), (wbf[0].float(), wbf[1]))
-        mean_e, max_e = compare_bf16(fb.fused_stem(x, wbf), oracle, f"fused_stem C={C}")
-        check(torch.equal(fb.fused_stem(x, wbf), fb.fused_stem(x, wbf)),
-              f"fused_stem C={C}: two bf16 launches on the same input differ")
-        sync(x.device)
-        w_lib = tree["conv1"]["w"].to(bf16).contiguous(memory_format=torch.channels_last)
-        b_lib = tree["conv1"]["b"].to(bf16)
-        x_nchw = x.permute(0, 3, 1, 2)
-        out = fb.fused_stem(x, wbf)
-        ops = 2.0 * x.shape[0] * 112 * 112 * 64 * 49 * C
-        b_ms, b_by = bound_ms(nbytes(x, *wbf, out), ops, bf16)
-        rows.append({
-            "name": f"fused_stem_c{C}", "route": "cuda",
-            "source": "pose6d_tpu_torch/csrc/stem_tc.cu",
-            "replaces": "pose6d_tpu/ops/pallas_block.py:439",
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: fb.fused_stem(x, wbf)),
-            "plain_ms": cuda_ms(lambda: fb.reference_stem(x, wbf)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(lambda: F.max_pool2d(
-                F.relu(F.conv2d(x_nchw, w_lib, b_lib, 2, 3)), 3, 2, 1)),
-            "bf16_mean_err": mean_e, "bf16_max_err": max_e,
-            **launch_costs(lambda: fb.fused_stem(x, wbf)),
-        })
-        if C == 3:
-            l1_tree, l1_in = tree, out
-    # layer1 on the rgb tower's real stem output
-    x = l1_in
-    w32, wbf = fb.pack_layer1_weights(l1_tree, f32), fb.pack_layer1_weights(l1_tree, bf16)
-    err = compare_f32(fb.fused_layer1(x.float(), w32), fb.reference_layer1(x.float(), w32),
-                      "fused_layer1")
+    C = x.shape[-1]
+    w32, wbf = fb.pack_stem_weights(tree, f32), fb.pack_stem_weights(tree, bf16)
+    err = compare_f32(fb.fused_stem(x.float(), w32), fb.reference_stem(x.float(), w32), name)
+    oracle = fb.reference_stem(x.float(), (wbf[0].float(), wbf[1]))
+    mean_e, max_e = compare_bf16(fb.fused_stem(x, wbf), oracle, name)
+    check(torch.equal(fb.fused_stem(x, wbf), fb.fused_stem(x, wbf)),
+          f"{name}: two bf16 launches on the same input differ")
+    sync(x.device)
+    w_lib = tree["conv1"]["w"].to(bf16).contiguous(memory_format=torch.channels_last)
+    b_lib = tree["conv1"]["b"].to(bf16)
+    x_nchw = x.permute(0, 3, 1, 2)
+    out = fb.fused_stem(x, wbf)
+    ops = 2.0 * x.shape[0] * 112 * 112 * 64 * 49 * C
+    b_ms, b_by = bound_ms(nbytes(x, *wbf, out), ops, bf16)
+    return {
+        "name": name, "route": "cuda", "source": "pose6d_tpu_torch/csrc/stem_tc.cu",
+        "replaces": "pose6d_tpu/ops/pallas_block.py:439", "max_abs_err": err,
+        "shape": list(x.shape),
+        "ms": cuda_ms(lambda: fb.fused_stem(x, wbf)),
+        "plain_ms": cuda_ms(lambda: fb.reference_stem(x, wbf)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: F.max_pool2d(
+            F.relu(F.conv2d(x_nchw, w_lib, b_lib, 2, 3)), 3, 2, 1)),
+        "bf16_mean_err": mean_e, "bf16_max_err": max_e,
+        **launch_costs(lambda: fb.fused_stem(x, wbf)),
+    }, out
+
+
+def layer1_row(tree, x, name: str) -> dict:
+    """layer1 on the tower's real stem output x [N, 56, 56, 64]: f32 and
+    bf16 against the plain version, two bf16 launches bit-equal, then timed
+    beside the plain version, the cuDNN bottleneck sequence, its bound and
+    the launch floor."""
+    from pose6d_tpu_torch.ops import fused_block as fb
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    w32, wbf = fb.pack_layer1_weights(tree, f32), fb.pack_layer1_weights(tree, bf16)
+    err = compare_f32(fb.fused_layer1(x.float(), w32), fb.reference_layer1(x.float(), w32), name)
     oracle = fb.reference_layer1(x.float(), tuple(t.float() for t in wbf))
-    mean_e, max_e = compare_bf16(fb.fused_layer1(x, wbf), oracle, "fused_layer1")
+    mean_e, max_e = compare_bf16(fb.fused_layer1(x, wbf), oracle, name)
     check(torch.equal(fb.fused_layer1(x, wbf), fb.fused_layer1(x, wbf)),
-          "fused_layer1: two bf16 launches on the same input differ")
+          f"{name}: two bf16 launches on the same input differ")
     sync(x.device)
     x_nchw = x.permute(0, 3, 1, 2)
-    lib_tree = library_tree(l1_tree, 1)
+    lib_tree = library_tree(tree, 1)
     out = fb.fused_layer1(x, wbf)
     b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * stage_macs(1), bf16)
-    rows.append({
-        "name": "fused_layer1", "route": "cuda", "source": "pose6d_tpu_torch/csrc/stage_wgmma.cu",
+    log_plan(name, 1, x.shape[0])
+    return {
+        "name": name, "route": "cuda", "source": "pose6d_tpu_torch/csrc/stage_wgmma.cu",
         "replaces": "pose6d_tpu/ops/pallas_block.py:187", "max_abs_err": err,
+        "shape": list(x.shape),
         "ms": cuda_ms(lambda: fb.fused_layer1(x, wbf)),
         "plain_ms": cuda_ms(lambda: fb.reference_layer1(x, wbf)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: library_stage(x_nchw, 1, lib_tree)),
         "bf16_mean_err": mean_e, "bf16_max_err": max_e,
-    })
+        **launch_costs(lambda: fb.fused_layer1(x, wbf)),
+    }
+
+
+def phase_kernels(pipe, geo_pipe, multi_pipe, tower_inputs, multi_inputs, store, rng):
+    """Each kernel against its plain version at the serving shapes, then
+    timed beside the plain version, a library computation and its bound:
+    the stem (C=3, C=1) and layer1 on the rgbd path's towers at batch 8,
+    the stages on rgbd_geometric's, the stem C=3 and layer1 again on the
+    rgb multi-object path's tower at its batch (8 frames x 4 objects)."""
+    from pose6d_tpu_torch.ops.quant import fold_bn_resnet
+
+    rows = []
+    for C, name in ((3, "rgb_backbone"), (1, "depth_backbone")):
+        tree = fold_bn_resnet(getattr(pipe.posenet, name))
+        x = (tower_inputs["rgb"] if C == 3 else tower_inputs["depth"]).contiguous()
+        row, out = stem_row(tree, x, f"fused_stem_c{C}")
+        rows.append(row)
+        if C == 3:
+            rows.append(layer1_row(tree, out, "fused_layer1"))
     rows += stage_rows(geo_pipe, tower_inputs["rgb"])
+    tree = fold_bn_resnet(multi_pipe.posenet.backbone)
+    x = multi_inputs["rgb"].contiguous()
+    row, out = stem_row(tree, x, f"fused_stem_c3_b{x.shape[0]}")
+    rows += [row, layer1_row(tree, out, f"fused_layer1_b{x.shape[0]}")]
 
     # addmin on centred model points under two seeded poses per sample, at
     # the serving add's batch and the train eval step's
@@ -579,12 +632,14 @@ def seeded_point_pairs(rng, dev, batch: int = BATCH):
     return (pred - c).contiguous(), (gt - c).contiguous()
 
 
-def make_requests(rng):
-    frames = [rng.integers(0, 256, (BATCH, FRAME_H, FRAME_W, 3), dtype=np.uint8)
+def make_requests(rng, h: int = FRAME_H, w: int = FRAME_W):
+    """N_REQUESTS + 1 (the first a warm-up) seeded requests of BATCH uint8
+    frames [h, w, 3] and metric depth maps (0.3-1.5 m, 5 % invalid)."""
+    frames = [rng.integers(0, 256, (BATCH, h, w, 3), dtype=np.uint8)
               for _ in range(N_REQUESTS + 1)]
     depths = []
     for _ in range(N_REQUESTS + 1):
-        d = rng.uniform(0.3, 1.5, (BATCH, FRAME_H, FRAME_W)).astype(np.float32)
+        d = rng.uniform(0.3, 1.5, (BATCH, h, w)).astype(np.float32)
         d[rng.random(d.shape) < 0.05] = 0.0  # invalid depth pixels
         depths.append(d)
     return frames, depths
@@ -593,14 +648,17 @@ def make_requests(rng):
 def phase_slice(pipe, float_pipe, frames, depths, expected: dict, exact_translation: bool):
     """3 requests through the folded pipeline with the launch counts set to
     0 just before and read just after; `expected` is the kernel launches
-    per request, and no other kernel may launch. Then the first request
-    against the float pipeline: equal boxes, tower features and rotations
-    within the bf16 envelope, translations within it or, where they come
-    from the depth map (rgbd_geometric), equal."""
+    per request, and no other kernel may launch; every tower kernel runs
+    on the whole pose batch (BATCH frames x max_objects). Then the first
+    request against the float pipeline: equal boxes, tower features and
+    rotations within the bf16 envelope, translations within it or, where
+    they come from the depth map (rgbd_geometric), equal."""
     from pose6d_tpu_torch import _build
     from pose6d_tpu_torch.models.posenet_serving import backbone_features
+    from pose6d_tpu_torch.ops import quant
 
     dev = pipe.device
+    M = pipe.cfg.max_objects
     K = torch.from_numpy(LINEMOD_K).to(dev)
     reqs = [(torch.from_numpy(f).to(dev), torch.from_numpy(d).to(dev))
             for f, d in zip(frames, depths)]
@@ -608,13 +666,15 @@ def phase_slice(pipe, float_pipe, frames, depths, expected: dict, exact_translat
     sync(dev)
 
     _build.launch_counts.clear()
-    lat, outs = [], []
-    for f, d in reqs[1:]:
-        t0 = time.perf_counter()
-        out = pipe(f, K, d)
-        sync(dev)
-        lat.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
+    lat, outs, calls = [], [], []
+    with spy(quant, "fused_stem", calls), spy(quant, "fused_layer1", calls), \
+            spy(quant, "fused_stage", calls):
+        for f, d in reqs[1:]:
+            t0 = time.perf_counter()
+            out = pipe(f, K, d)
+            sync(dev)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
     counts = dict(_build.launch_counts)
     log(f"  launches over {N_REQUESTS} requests: {counts}")
     check(set(counts) == set(expected), f"kernels launched {sorted(counts)}, "
@@ -622,11 +682,16 @@ def phase_slice(pipe, float_pipe, frames, depths, expected: dict, exact_translat
     for key, per_call in expected.items():
         check(counts[key] == per_call * N_REQUESTS,
               f"{key}: {counts[key]} launches, expected {per_call * N_REQUESTS}")
+    batches = sorted({args[0].shape[0] for args, _, _ in calls})
+    check(batches == [BATCH * M], f"tower kernels ran at batches {batches}, expected "
+                                  f"{BATCH} frames x {M} objects")
+    del calls
+    lead = (BATCH, M) if M > 1 else (BATCH,)
     for out in outs:
         for k in ("rotation", "translation", "bbox_xywh"):
             check(bool(torch.isfinite(out[k]).all()), f"{k} not finite")
-        check(tuple(out["rotation"].shape) == (BATCH, 4), "rotation shape")
-        check(tuple(out["translation"].shape) == (BATCH, 3), "translation shape")
+        check(tuple(out["rotation"].shape) == lead + (4,), "rotation shape")
+        check(tuple(out["translation"].shape) == lead + (3,), "translation shape")
         norms = torch.linalg.norm(out["rotation"], dim=-1)
         check(bool(((norms - 1).abs() < 1e-3).all()), f"rotation norms {norms.tolist()}")
 
@@ -664,31 +729,96 @@ def phase_slice(pipe, float_pipe, frames, depths, expected: dict, exact_translat
     return outs[-1], counts, {"latency_ms": lat, "fps": BATCH / med * 1e3}
 
 
+def check_decode_on_card(pipe, frames) -> None:
+    """The pipeline's decode + NMS of one request's detector outputs (bf16)
+    on the card under torch.cuda.set_sync_debug_mode("error"), against the
+    same call on CPU copies of those outputs: classes, validity and scores
+    equal bit for bit (the rankings are stable sorts, the sigmoid float64
+    rounded once), boxes within DECODE_BOX_ATOL px."""
+    dev = pipe.device
+    with torch.inference_mode():
+        f = torch.from_numpy(frames).to(dev)
+        canvas, _, _, _, det_hw = pipe._letterbox(f.to(pipe.cfg.compute_dtype) / 255.0)
+        outputs = pipe.yolo(canvas.to(pipe.yolo_cfg.dtype))
+        check(all(b.dtype == c.dtype == torch.bfloat16 for b, c in outputs),
+              "the detector's outputs are not bf16")
+        sync(dev)
+        torch.cuda.set_sync_debug_mode("error")  # any wait for the card raises
+        try:
+            got = pipe._decode(outputs, det_hw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = pipe._decode([(b.cpu(), c.cpu()) for b, c in outputs], det_hw)
+    for k in ("classes", "valid", "scores"):
+        check(torch.equal(got[k].cpu(), want[k]), f"decode {k}: card and CPU differ")
+    box_err = (got["boxes"].cpu() - want["boxes"]).abs().max().item()
+    check(box_err <= DECODE_BOX_ATOL, f"decode boxes: card vs CPU {box_err:.3g} px")
+    log(f"  decode + NMS {tuple(got['boxes'].shape[:2])} on the card with no wait for it: "
+        f"classes, valid, scores bit-equal to the CPU's, boxes within {box_err:.3g} px; "
+        f"{int(got['valid'].sum())} valid slots")
+
+
+def check_windowed_crop(frames, rng, dev) -> None:
+    """crop_resize_matmul_windowed at CROP_WINDOW against crop_resize_matmul
+    on the card, on BATCH frames of the letterbox request and planted
+    square crops of side 40-300 px (some past the edges): f32 within
+    F32_RTOL, bf16 within the bf16 envelope of the f32 full crop."""
+    from pose6d_tpu_torch.ops.crop_resize import (crop_params_from_bbox, crop_resize_matmul,
+                                                  crop_resize_matmul_windowed)
+
+    h, w = frames.shape[1:3]
+    side = np.repeat(rng.uniform(40, 300, (BATCH, 1)), 2, axis=1) / 1.2  # crop = 1.2 x box
+    xy = rng.uniform(0, 1, (BATCH, 2)) * np.array([w, h]) - side / 2
+    box = torch.from_numpy(np.concatenate([xy, side], -1).astype(np.float32))
+    x1, y1, size = (p.to(dev) for p in crop_params_from_bbox(box))
+    with torch.inference_mode():
+        img = torch.from_numpy(frames).to(dev).float() / 255.0
+        full = crop_resize_matmul(img, x1, y1, size, 224)
+        err = compare_f32(crop_resize_matmul_windowed(img, x1, y1, size, 224, CROP_WINDOW),
+                          full, "windowed crop")
+        mean_e, max_e = compare_bf16(
+            crop_resize_matmul_windowed(img.to(torch.bfloat16), x1, y1, size, 224, CROP_WINDOW,
+                                        compute_dtype=torch.bfloat16), full, "windowed crop")
+    log(f"  windowed crop (window {CROP_WINDOW}, crop sides {size.min().item():.0f}-"
+        f"{size.max().item():.0f} px) vs full-frame crop: f32 max err {err:.3g}, "
+        f"bf16 mean/max err {mean_e:.3g}/{max_e:.3g}")
+
+
 def phase_add(out, rng):
+    """ADD / ADD-S of a serving phase's poses (all B x M of them) against
+    seeded ground truth: one launch of the nearest-point kernel at that
+    batch, and the metrics against the plain version on the CPU. Returns
+    (launches, batch)."""
     from pose6d_tpu_torch import _build
     from pose6d_tpu_torch.geometry.quat import quat_to_mat
+    from pose6d_tpu_torch.losses import add as add_mod
     from pose6d_tpu_torch.losses.add import SYMMETRIC_OBJECT_IDS, add_metrics
 
-    dev = out["rotation"].device
+    rot, trans = out["rotation"].reshape(-1, 4), out["translation"].reshape(-1, 3)
+    n, dev = rot.shape[0], rot.device
     models = seeded_object_models(rng, dev)
-    gt_q, gt_t = seeded_poses(rng, BATCH, dev)
-    ids = torch.from_numpy(rng.integers(0, 13, BATCH)).to(dev)
+    gt_q, gt_t = seeded_poses(rng, n, dev)
+    ids = torch.from_numpy(rng.integers(0, 13, n)).to(dev)
     ids[0] = SYMMETRIC_OBJECT_IDS[0]  # one symmetric object in the batch
     args = (models.points, models.diameters, models.symmetric, models.present,
-            quat_to_mat(out["rotation"]), out["translation"], quat_to_mat(gt_q), gt_t, ids,
-            models.num_valid)
+            quat_to_mat(rot), trans, quat_to_mat(gt_q), gt_t, ids, models.num_valid)
     _build.launch_counts.clear()
-    got = add_metrics(*args)
+    calls = []
+    with spy(add_mod, "pairwise_min_dist_kernel", calls):
+        got = add_metrics(*args)
     sync(dev)
-    n = _build.launch_counts.get("pairwise_min_dist", 0)
-    check(n == 1, f"add_metrics launched the addmin kernel {n} times, expected 1")
+    launches = _build.launch_counts.get("pairwise_min_dist", 0)
+    check(launches == 1, f"add_metrics launched the addmin kernel {launches} times, expected 1")
+    shape = tuple(calls[0][0][0].shape)
+    check(shape == (n, N_POINTS, 3), f"addmin ran at {shape}, expected ({n}, {N_POINTS}, 3)")
     want = add_metrics(*(a.cpu() for a in args))  # plain version on the CPU
     for k in ("add_mean", "add_s_mean"):
         diff = abs(got[k].item() - want[k].item())
         check(diff <= 1e-3, f"{k}: kernel {got[k].item()} vs plain {want[k].item()} (mm)")
     check(got["add_01d_acc"].item() == want["add_01d_acc"].item(), "add_01d_acc differs")
-    log("  " + ", ".join(f"{k} {v.item():.4f}" for k, v in got.items()) + " (mm, mm, %, n)")
-    return n
+    log(f"  addmin at {list(shape)}: " + ", ".join(f"{k} {v.item():.4f}" for k, v in got.items())
+        + " (mm, mm, %, n)")
+    return launches, n
 
 
 def seeded_split(rng, device):
@@ -890,11 +1020,14 @@ def profile_step(epoch, state, store, meta, g, step_ms: float) -> None:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
-def setup(rng, device):
+def setup(rng, rng_new, device):
     """Seeded full-width weights; per path (rgbd with the stem and layer1
-    kernels, rgbd_geometric with the stem and stage 1-2 kernels) the folded
-    pipeline and the float pipeline on the same weights; the requests; and
-    the first request's tower inputs."""
+    kernels, rgbd_geometric with the stem and stage 1-2 kernels, rgb with
+    MULTI_OBJECTS poses per frame, a bf16 detector and the stem and layer1
+    kernels) the folded pipeline and the float pipeline on the same
+    weights; the requests at 640x480 and (from rng_new) at LB_W x LB_H;
+    and the first request's tower inputs of the rgbd and the rgb
+    multi-object paths."""
     from pose6d_tpu_torch.convert import init_posenet_weights, init_yolo_weights
     from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
     from pose6d_tpu_torch.models.posenet import PoseNetConfig
@@ -902,26 +1035,32 @@ def setup(rng, device):
 
     yolo_cfg = YoloConfig()
     yolo_state = init_yolo_weights(yolo_cfg, SEED + 1)
+    stem_l1 = {"pallas_stem": True, "pallas_layer1": True}
+    multi = {"max_objects": MULTI_OBJECTS, "conf_thresh": 0.0, "nms_pre_topk": 64}
     paths = {}
-    for i, (variant, fold) in enumerate((
-            ("rgbd", {"pallas_stem": True, "pallas_layer1": True}),
-            ("rgbd_geometric", {"pallas_stem": True, "pallas_stages": STAGES_SERVED}))):
+    for i, (key, variant, fold, extra, ycfg) in enumerate((
+            ("rgbd", "rgbd", stem_l1, {}, yolo_cfg),
+            ("rgbd_geometric", "rgbd_geometric",
+             {"pallas_stem": True, "pallas_stages": STAGES_SERVED}, {}, yolo_cfg),
+            ("rgb_multi", "rgb", stem_l1, multi, YoloConfig(dtype=torch.bfloat16)))):
         pose_cfg = PoseNetConfig(variant=variant)
         pose_state = init_posenet_weights(pose_cfg, SEED + 2 * i)
-        cfg = PipelineConfig(variant=variant, img_size=224, compute_dtype=torch.bfloat16)
+        cfg = PipelineConfig(variant=variant, img_size=224, compute_dtype=torch.bfloat16, **extra)
 
         def make():
-            return PosePipeline(cfg, yolo_cfg, yolo_state, pose_state, pose_cfg, device=device)
+            return PosePipeline(cfg, ycfg, yolo_state, pose_state, pose_cfg, device=device)
 
-        paths[variant] = (make().fold_backbones(**fold), make())
-    frames, depths = make_requests(rng)
+        paths[key] = (make().fold_backbones(**fold), make())
+    requests = {"native": make_requests(rng), "letterbox": make_requests(rng_new, LB_H, LB_W)}
     store = seeded_split(rng, device)
-    pipe = paths["rgbd"][0]
+    frames, depths = requests["native"]
+    inputs = {}
     with torch.inference_mode():
         K = torch.from_numpy(LINEMOD_K).to(device).expand(BATCH, 3, 3)
-        tower_inputs = pipe.crop_stage(torch.from_numpy(frames[0]).to(device), K,
-                                       torch.from_numpy(depths[0]).to(device))["inputs"]
-    return paths, frames, depths, tower_inputs, store
+        for key in ("rgbd", "rgb_multi"):
+            inputs[key] = paths[key][0].crop_stage(torch.from_numpy(frames[0]).to(device), K,
+                                                   torch.from_numpy(depths[0]).to(device))["inputs"]
+    return paths, requests, inputs, store
 
 
 def main() -> int:
@@ -964,59 +1103,81 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    paths, frames, depths, tower_inputs, store = setup(rng, "cuda")
+    # the multi-object and letterbox phases draw from a generator of their
+    # own, so that adding them left every other phase's inputs as they were
+    rng_new = np.random.default_rng(SEED + 10)
+    paths, requests, inputs, store = setup(rng, rng_new, "cuda")
     log(f"  set-up: seeded weights, pipelines, requests and the resident split of "
         f"{len(store)} frames, {store.nbytes() / 2**20:.1f} MiB ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     with torch.inference_mode():
-        rows = phase_kernels(paths["rgbd"][0], paths["rgbd_geometric"][0], tower_inputs,
-                             store, rng)
+        rows = phase_kernels(paths["rgbd"][0], paths["rgbd_geometric"][0], paths["rgb_multi"][0],
+                             inputs["rgbd"], inputs["rgb_multi"], store, rng)
     log(f"[phase 3 kernels] each kernel matches its plain version in f32 and bf16, "
         f"fused_stage s1 equals fused_layer1 bit for bit, the gather is bit-equal "
         f"({time.perf_counter() - t0:.1f}s)")
 
-    launches, outs, serving = collections.Counter(), {}, {}
-    for n, (variant, expected, exact) in enumerate((
-            ("rgbd", {"fused_stem_c3": 1, "fused_stem_c1": 1, "fused_layer1": 2}, False),
-            ("rgbd_geometric", {"fused_stem_c3": 1, **{f"fused_stage_s{s}": 1
-                                                       for s in STAGES_SERVED}}, True))):
+    # launches by kernel row: a kernel's launches at a batch that has a row
+    # of its own (e.g. fused_stem_c3_b32) go there, the rest to its row
+    names = {r["name"] for r in rows}
+    launches = collections.Counter()
+
+    def count(counts: dict, batch: int) -> None:
+        for k, v in counts.items():
+            launches[f"{k}_b{batch}" if f"{k}_b{batch}" in names else k] += v
+
+    geo_stages = {"fused_stem_c3": 1, **{f"fused_stage_s{s}": 1 for s in STAGES_SERVED}}
+    outs, serving = {}, {}
+    for n, (title, key, req, expected, exact) in enumerate((
+            ("rgbd", "rgbd", "native",
+             {"fused_stem_c3": 1, "fused_stem_c1": 1, "fused_layer1": 2}, False),
+            ("rgbd_geometric", "rgbd_geometric", "native", geo_stages, True),
+            ("rgb multi-object", "rgb_multi", "native", {"fused_stem_c3": 1, "fused_layer1": 1},
+             False),
+            ("rgbd_geometric letterbox", "rgbd_geometric", "letterbox", geo_stages, True))):
         t0 = time.perf_counter()
-        outs[variant], counts, serving[variant] = phase_slice(
-            *paths[variant], frames, depths, expected, exact)
-        launches.update(counts)
-        log(f"[phase {4 + n} slice {variant}] folded serving, {N_REQUESTS} requests of "
-            f"{BATCH} frames {FRAME_W}x{FRAME_H} on {smi} ({time.perf_counter() - t0:.1f}s)")
+        pipe = paths[key][0]
+        frames, depths = requests[req]
+        outs[title], counts, serving[title] = phase_slice(*paths[key], frames, depths,
+                                                          expected, exact)
+        count(counts, BATCH * pipe.cfg.max_objects)
+        if key == "rgb_multi":
+            check_decode_on_card(pipe, frames[1])
+        if req == "letterbox":
+            check_windowed_crop(frames[1], rng_new, pipe.device)
+        log(f"[phase {4 + n} slice {title}] folded serving, {N_REQUESTS} requests of "
+            f"{BATCH} frames {frames[0].shape[2]}x{frames[0].shape[1]}, "
+            f"{pipe.cfg.max_objects} pose(s) per frame, detector "
+            f"{str(pipe.yolo_cfg.dtype).removeprefix('torch.')} on {smi} "
+            f"({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     with torch.inference_mode():
-        for variant, out in outs.items():
-            log(f"  {variant}:")
-            launches["pairwise_min_dist"] += phase_add(out, rng)
-    add_launches = launches["pairwise_min_dist"]
-    log(f"[phase 6 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
+        for title, out in outs.items():
+            log(f"  {title}:")
+            n, batch = phase_add(out, rng if title in ("rgbd", "rgbd_geometric") else rng_new)
+            count({"pairwise_min_dist": n}, batch)
+    log(f"[phase 8 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     counts, train = phase_train(store, rng)
-    launches.update(counts)
-    log(f"[phase 7 train rgbd] {TRAIN_STEPS} steps at batch 32, 224, f32 (TF32 off) on {smi}: "
+    count(counts, 32)
+    log(f"[phase 9 train rgbd] {TRAIN_STEPS} steps at batch 32, 224, f32 (TF32 off) on {smi}: "
         f"smoke reading, not a throughput: {train['step_ms']:.3f} ms/step (CUDA events over "
         f"the epoch call; host enqueue {train['host_enqueue_ms']:.1f} ms), losses finite, "
         f"every parameter and BN statistic moved, gathers {counts['gather_rows_u32']} "
         f"(8 epoch + 2 eval batch), addmin {counts['pairwise_min_dist']} "
         f"({time.perf_counter() - t0:.1f}s)")
 
-    # addmin's launches by shape: batch 8 in phase 6, the eval step's 32 in phase 7
-    by_shape = {"pairwise_min_dist": add_launches,
-                "pairwise_min_dist_b32": counts["pairwise_min_dist"]}
     for r in rows:
-        r["launches"] = by_shape.get(r["name"], launches.get(r["name"], 0))
+        r["launches"] = launches.get(r["name"], 0)
         if r["name"] == "pairwise_min_dist_b32":  # phase 3's inputs and the eval step's
             r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 8 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 10 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())

@@ -1,23 +1,26 @@
 """Detect -> crop -> pose serving pipeline (counterpart of
-pose6d_tpu/infer/pipeline.py), all four PoseNet variants, one pose per
-frame.
+pose6d_tpu/infer/pipeline.py), all four PoseNet variants, any frame size,
+one or more poses per frame.
 
-uint8 frames /255 in compute_dtype -> YOLOv8 at native resolution ->
-top-1 decode -> square crop at 1.2x the box -> crop+resize as two matmuls
--> ImageNet normalization -> PoseNet (float towers, or BN-folded serving
-towers after fold_backbones, whose stem, layer1 and stages may run as CUDA
-kernels). Per variant, as in the reference's deployment scripts:
-  - rgb, rgbd: X/Y re-derived from the predicted Z, the box centre and the
-    original intrinsics (the JAX package's geometric_correction, always on);
+uint8 frames /255 in compute_dtype -> YOLOv8 at native resolution (or on
+a centred det_size letterbox where the frame's sides do not divide the
+detector's coarsest stride) -> top-1 decode, or top-k + class-aware NMS
+for max_objects > 1 -> boxes mapped back to the frame -> square crop at
+1.2x each box -> crop+resize as two matmuls (optionally on a per-sample
+window) -> ImageNet normalization -> PoseNet over the [B*M] crops (float
+towers, or BN-folded serving towers after fold_backbones, whose stem,
+layer1 and stages may run as CUDA kernels). Per variant, as in the
+reference's deployment scripts:
+  - rgb, rgbd: with geometric_correction, X/Y re-derived from the
+    predicted Z, the box centre and the original intrinsics;
   - rgb_geometric: the network takes the original-frame centre and K;
-  - rgbd: the depth map is cropped in compute_dtype and normalized;
+  - rgbd: the depth map is cropped in compute_dtype (depth_crop_bf16) or
+    f32, and normalized;
   - rgbd_geometric: the depth map is cropped in f32 (its depth is metric)
     and the network takes the crop-frame centre, clipped to the crop, and
     the crop's intrinsics.
 
-Not ported yet: the letterbox branch (frame sides not divisible by the
-detector's coarsest stride, raises), more than one pose per frame with
-general NMS, the crop window and the int8 mode; see ROADMAP.md.
+Not ported: the int8 mode (quantize_backbones) and shard; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import DEFAULT_DEVICE
 from ..data.crop import normalize_depth
@@ -35,7 +39,8 @@ from ..models.posenet_serving import serving_forward
 from ..models.yolo.decode import decode_topk_nms
 from ..models.yolo.model import YoloConfig, YoloV8
 from ..ops.augment import eval_preprocess
-from ..ops.crop_resize import crop_params_from_bbox, crop_resize_matmul
+from ..ops.crop_resize import (crop_params_from_bbox, crop_resize_matmul,
+                               crop_resize_matmul_windowed)
 from ..ops.fused_block import pack_layer1_weights, pack_stage_weights, pack_stem_weights
 from ..ops.quant import fold_bn_resnet
 
@@ -44,10 +49,26 @@ from ..ops.quant import fold_bn_resnet
 class PipelineConfig:
     variant: str = "rgb"  # rgb | rgb_geometric | rgbd | rgbd_geometric
     img_size: int = 224
+    det_size: int = 640  # letterbox side for frames whose sides do not divide the stride
     conf_thresh: float = 0.25
-    # towers, crops and frames; the rgbd net sees only the normalized depth,
-    # so its depth map is cropped in this dtype too (rgbd_geometric: f32)
+    iou_thresh: float = 0.7
+    nms_pre_topk: int = 64
+    # greedy-NMS fixpoint iterations: exact for suppression chains up to
+    # this depth; None = nms_pre_topk iterations (always exact)
+    nms_fixpoint_iters: int | None = 16
+    max_objects: int = 1  # poses per frame: the top-M detections by score
+    # max_objects=1: decode the best anchor alone (slot 0 of the general
+    # NMS path, which never suppresses the global best)
+    nms_top1_fast: bool = True
+    # crop from a per-sample window of this side instead of the whole frame
+    # (must exceed the largest crop side); None = the whole frame
+    crop_window: int | None = None
+    geometric_correction: bool = True  # rgb, rgbd: re-derive X/Y at deployment
+    # towers, crops and frames
     compute_dtype: torch.dtype = torch.bfloat16
+    # rgbd: crop the depth map in compute_dtype (the net sees only the
+    # normalized depth); else f32. rgbd_geometric always crops it in f32
+    depth_crop_bf16: bool = True
 
 
 class PosePipeline:
@@ -104,46 +125,95 @@ class PosePipeline:
 
     # ------------------------------------------------------------------ core
 
-    def _detect_best(self, frames_norm: torch.Tensor):
-        """YOLO at native resolution -> top-1 box per frame, as xywh in
-        original-frame pixels [B, 1, 4], plus the raw decode dict."""
-        _, H, W, _ = frames_norm.shape
+    def _letterbox(self, frames_norm: torch.Tensor):
+        """Detector input: the frames themselves when their sides divide the
+        coarsest stride, else a centred det_size x det_size canvas of
+        114/255 with the frames resized into it (bilinear, antialiased when
+        it shrinks, as jax.image.resize; computed in f32 and cast once).
+        Returns (canvas, scale, pad_l, pad_t, det_hw)."""
+        B, H, W, C = frames_norm.shape
         stride = max(self.yolo_cfg.strides)
-        if H % stride or W % stride:
-            raise NotImplementedError(
-                f"frames {H}x{W} need the letterbox path (sides must divide "
-                f"{stride}); it is not ported yet")
-        outputs = self.yolo(frames_norm.to(self.yolo_cfg.dtype))
-        dets = decode_topk_nms(outputs, self.yolo_cfg, (H, W), max_det=1,
-                               conf_thresh=self.cfg.conf_thresh)
-        x1, y1, x2, y2 = dets["boxes"].unbind(-1)
+        if H % stride == 0 and W % stride == 0:
+            return frames_norm, 1.0, 0, 0, (H, W)
+        D = self.cfg.det_size
+        scale = min(D / W, D / H)
+        nh, nw = int(round(H * scale)), int(round(W * scale))
+        pad_t, pad_l = (D - nh) // 2, (D - nw) // 2
+        resized = F.interpolate(frames_norm.permute(0, 3, 1, 2).float(), size=(nh, nw),
+                                mode="bilinear", align_corners=False, antialias=True)
+        canvas = frames_norm.new_full((B, D, D, C), 114.0 / 255.0)
+        canvas[:, pad_t:pad_t + nh, pad_l:pad_l + nw] = resized.permute(0, 2, 3, 1)
+        return canvas, scale, pad_l, pad_t, (D, D)
+
+    def _decode(self, outputs, det_hw) -> dict:
+        """The detector's raw maps -> detections [B, D, ...] in canvas
+        pixels: the top-1 decode (D = 1) when max_objects == 1 and
+        nms_top1_fast, else NMS with D = max(8, max_objects)."""
+        cfg = self.cfg
+        top1 = cfg.max_objects == 1 and cfg.nms_top1_fast
+        return decode_topk_nms(outputs, self.yolo_cfg, det_hw,
+                               max_det=1 if top1 else max(8, cfg.max_objects),
+                               pre_topk=cfg.nms_pre_topk, iou_thresh=cfg.iou_thresh,
+                               conf_thresh=cfg.conf_thresh,
+                               fixpoint_iters=cfg.nms_fixpoint_iters)
+
+    def _detect_best(self, frames_norm: torch.Tensor):
+        """YOLO -> decode -> every detection mapped back to the original
+        frame, score-ordered, as xywh [B, D, 4], plus the decode dict."""
+        canvas, scale, pad_l, pad_t, det_hw = self._letterbox(frames_norm)
+        dets = self._decode(self.yolo(canvas.to(self.yolo_cfg.dtype)), det_hw)
+        b = dets["boxes"]  # [B, D, 4] xyxy in the canvas
+        x1 = (b[..., 0] - pad_l) / scale
+        y1 = (b[..., 1] - pad_t) / scale
+        x2 = (b[..., 2] - pad_l) / scale
+        y2 = (b[..., 3] - pad_t) / scale
         return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1), dets
+
+    def _per_object(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-frame tensor [B, ...] repeated for each of the M objects:
+        [B*M, ...], frame-major."""
+        M = self.cfg.max_objects
+        return t.repeat_interleave(M, dim=0) if M > 1 else t
 
     def crop_stage(self, frames: torch.Tensor, camera_K: torch.Tensor,
                    depth_raw_full: torch.Tensor | None = None) -> dict:
-        """Everything before the pose net: detection, crop parameters and
-        {"inputs": the PoseNet keyword arguments of the variant ("rgb"
-        [B,S,S,3] in compute_dtype, and "depth", "depth_raw", "bbox_center",
-        "camera_matrix" as the variant takes them), "bbox_xywh", "center"
-        (the box centre in the frame), "dets"}."""
+        """Everything before the pose net, over the [B*M] pose batch (the
+        top-M detections of each frame, frame-major): {"inputs": the
+        PoseNet keyword arguments of the variant ("rgb" [B*M,S,S,3] in
+        compute_dtype, and "depth", "depth_raw", "bbox_center",
+        "camera_matrix" as the variant takes them), "bbox_xywh" [B*M, 4],
+        "center" (the box centre in the frame), "dets" (the decode dict,
+        [B, D, ...])}."""
         cfg = self.cfg
-        S = cfg.img_size
-        cd = cfg.compute_dtype
+        S, M, cd = cfg.img_size, cfg.max_objects, cfg.compute_dtype
+        B = frames.shape[0]
         frames_norm = frames.to(cd) / 255.0
-        bbox_xywh, dets = self._detect_best(frames_norm)
-        bbox = bbox_xywh[:, 0]
+        all_bbox, dets = self._detect_best(frames_norm)
+        bbox = all_bbox[:, :M].reshape(B * M, 4)
+        K = self._per_object(camera_K)
         cx1, cy1, csize = crop_params_from_bbox(bbox)
 
+        def crop_one(src, xs, ys, ss, dtype):
+            if cfg.crop_window is not None and cfg.crop_window < min(src.shape[1], src.shape[2]):
+                return crop_resize_matmul_windowed(src, xs, ys, ss, S, cfg.crop_window,
+                                                   compute_dtype=dtype)
+            return crop_resize_matmul(src, xs, ys, ss, S, compute_dtype=dtype)
+
         def crop(src, dtype):
-            return crop_resize_matmul(src.to(dtype), cx1, cy1, csize, S, compute_dtype=dtype)
+            # each of the M crops of a frame reads the same source frame
+            src = src.to(dtype)
+            params = [p.reshape(B, M) for p in (cx1, cy1, csize)]
+            outs = [crop_one(src, *(p[:, m] for p in params), dtype) for m in range(M)]
+            return torch.stack(outs, 1).reshape(B * M, S, S, src.shape[-1])
 
         crops = eval_preprocess(crop(frames_norm, cd)).to(cd)
         center = torch.stack([bbox[:, 0] + bbox[:, 2] / 2.0, bbox[:, 1] + bbox[:, 3] / 2.0], -1)
         inputs = {"rgb": crops}
         if cfg.variant == "rgb_geometric":
-            inputs.update(bbox_center=center, camera_matrix=camera_K)
+            inputs.update(bbox_center=center, camera_matrix=K)
         elif cfg.variant == "rgbd":
-            depth_crop = crop(depth_raw_full[..., None], cd)[..., 0]
+            depth_crop = crop(depth_raw_full[..., None],
+                              cd if cfg.depth_crop_bf16 else torch.float32)[..., 0]
             inputs["depth"] = normalize_depth(depth_crop)[..., None].to(cd)
         elif cfg.variant == "rgbd_geometric":
             # crop-frame bookkeeping; the device crop never materializes
@@ -155,11 +225,12 @@ class PosePipeline:
             inputs.update(
                 depth_raw=crop(depth_raw_full[..., None], torch.float32)[..., 0],
                 bbox_center=center_crop,
-                camera_matrix=adjust_intrinsics_for_crop(camera_K, cx1, cy1, zeros, zeros, scale))
+                camera_matrix=adjust_intrinsics_for_crop(K, cx1, cy1, zeros, zeros, scale))
         return {"inputs": inputs, "bbox_xywh": bbox, "center": center, "dets": dets}
 
     def _run(self, frames, camera_K, depth_raw_full) -> dict:
         cfg = self.cfg
+        B, M = frames.shape[0], cfg.max_objects
         st = self.crop_stage(frames, camera_K, depth_raw_full)
         if self._folded:
             rot, trans = serving_forward(self.posenet, self.pose_cfg, **st["inputs"],
@@ -167,18 +238,22 @@ class PosePipeline:
         else:
             rot, trans = self.posenet(**st["inputs"])
         trans = trans.float()
-        if cfg.variant in ("rgb", "rgbd"):
+        if cfg.geometric_correction and cfg.variant in ("rgb", "rgbd"):
             # deployment-time X/Y re-derivation from the predicted Z, the box
             # centre and the original intrinsics
-            trans = pinhole_xy_from_z(trans[:, 2], st["center"], camera_K)
+            trans = pinhole_xy_from_z(trans[:, 2], st["center"], self._per_object(camera_K))
         dets = st["dets"]
+
+        def shape_out(x):
+            return x.reshape(B, M, *x.shape[1:]) if M > 1 else x
+
         return {
-            "rotation": rot.float(),
-            "translation": trans,
-            "bbox_xywh": st["bbox_xywh"],
-            "class_id": dets["classes"][:, 0],
-            "det_score": dets["scores"][:, 0],
-            "det_valid": dets["valid"][:, 0],
+            "rotation": shape_out(rot.float()),
+            "translation": shape_out(trans),
+            "bbox_xywh": shape_out(st["bbox_xywh"]),
+            "class_id": shape_out(dets["classes"][:, :M].reshape(B * M)),
+            "det_score": shape_out(dets["scores"][:, :M].reshape(B * M)),
+            "det_valid": shape_out(dets["valid"][:, :M].reshape(B * M)),
             "detections": dets,
         }
 

@@ -72,17 +72,44 @@ def _interp_matrix(start: torch.Tensor, size: torch.Tensor, in_dim: int,
 
 def crop_resize_matmul(images: torch.Tensor, x1: torch.Tensor,
                        y1: torch.Tensor, size: torch.Tensor, out_size: int,
-                       compute_dtype=torch.float32) -> torch.Tensor:
+                       compute_dtype=torch.float32, src_scale: float = 1.0) -> torch.Tensor:
     """Crop+resize as two batched matmuls, V_y @ img @ V_x^T, in
     compute_dtype (bf16 for image data feeding a bf16 network, f32 for
-    metric depth). [B, H, W, C] -> [B, S, S, C] float32."""
+    metric depth). [B, H, W, C] -> [B, S, S, C] float32. src_scale is
+    folded into V_y after its cast to compute_dtype (e.g. 1/255 on uint8
+    frames)."""
     B, H, W, C = images.shape
     vy = _interp_matrix(y1, size, H, out_size).to(compute_dtype)
     vx = _interp_matrix(x1, size, W, out_size).to(compute_dtype)
+    if src_scale != 1.0:
+        vy = vy * torch.tensor(src_scale, dtype=compute_dtype)
     images = images.to(compute_dtype)
     tmp = torch.einsum("btw,bhwc->bhtc", vx, images)
     out = torch.einsum("bsh,bhtc->bstc", vy, tmp)
     return out.float()
+
+
+def crop_resize_matmul_windowed(images: torch.Tensor, x1: torch.Tensor,
+                                y1: torch.Tensor, size: torch.Tensor, out_size: int,
+                                window: int, compute_dtype=torch.float32,
+                                src_scale: float = 1.0) -> torch.Tensor:
+    """crop_resize_matmul on a per-sample [window, window] slice of each
+    frame: the interpolation matrices and the matmuls' K shrink from H, W
+    to window. The slice starts at trunc(x1), trunc(y1) clipped into the
+    frame, and sizes are clamped to window - 2, so a crop larger than that
+    loses its outer border (pick window above the largest crop side).
+    The slices are one index gather over the batch."""
+    B, H, W, C = images.shape
+    window = min(window, H, W)
+    size = torch.clamp_max(size, window - 2)
+    wx0 = torch.trunc(x1).clamp(0, W - window).to(torch.int64)
+    wy0 = torch.trunc(y1).clamp(0, H - window).to(torch.int64)
+    off = torch.arange(window, device=images.device)
+    rows = (wy0[:, None] + off)[:, :, None]  # [B, window, 1]
+    cols = (wx0[:, None] + off)[:, None, :]  # [B, 1, window]
+    sub = images[torch.arange(B, device=images.device)[:, None, None], rows, cols]
+    return crop_resize_matmul(sub, x1 - wx0.to(x1.dtype), y1 - wy0.to(y1.dtype), size,
+                              out_size, compute_dtype, src_scale)
 
 
 def crop_params_from_bbox(bbox_xywh: torch.Tensor, expansion: float = 1.2):

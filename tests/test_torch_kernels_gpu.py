@@ -18,7 +18,11 @@ equal to its plain version at batches 1, 3, 32 and 33 of 128- to
 them: each kernel launches on its input's card when another card is
 current (skipped below two cards), one device-preprocess train step of
 each PoseNet variant is finite on the card, and the rgbd train epoch
-never waits for the card (torch.cuda.set_sync_debug_mode("error")).
+never waits for the card (torch.cuda.set_sync_debug_mode("error")); the
+serving path's plain tensor code on the card against the CPU: the
+decode + NMS with ties planted in bf16 class logits (bit-equal classes,
+validity and scores, with no wait for the card), the windowed crop
+against the full-frame crop, and the 1280x720 letterbox.
 Tolerances: f32 kernel vs plain max error <= 1e-4 * max(1, |plain|max)
 (different f32 summation order); bf16 kernel vs the f32 plain version
 within the bf16 envelope (mean error < 0.02 std, max < 0.25 std);
@@ -476,3 +480,88 @@ def test_gather_kernel_shares(cuda, batch, r, blocks_per_sm):
     torch.cuda.synchronize()
     assert torch.equal(out, gf._gather_rows_plain(words, idx))
 
+
+
+def _tied_detector_outputs(seed, batch=8, hw=(480, 640), nc=13):
+    """Seeded raw YOLOv8 maps at a full frame as bf16 tensors, the class
+    logits on a 0.5 grid capped at 1.0 (a third of the anchors tie for the
+    best logit) and classes 1 and 2 equal at every anchor."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for s in (8, 16, 32):
+        shape = (batch, hw[0] // s, hw[1] // s)
+        cls = torch.clamp_max(torch.round(torch.randn(*shape, nc, generator=g) * 2) / 2, 1.0)
+        cls[..., 2] = cls[..., 1]
+        out.append(((torch.randn(*shape, 64, generator=g) * 1.5).to(torch.bfloat16),
+                    cls.to(torch.bfloat16)))
+    return out
+
+
+@pytest.mark.parametrize("max_det", [1, 64])
+def test_decode_on_the_card_equals_cpu(cuda, max_det):
+    """decode_topk_nms on the card, under set_sync_debug_mode("error"),
+    against the same call on the CPU, with ties planted in the bf16 class
+    logits: classes, validity and scores equal bit for bit (the ranking is
+    a stable sort on both), boxes within 1e-4 px (the DFL softmax's exp
+    differs in the last bit between the two)."""
+    from pose6d_tpu_torch.models.yolo.decode import decode_topk_nms
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+
+    cfg = YoloConfig()
+    outputs = _tied_detector_outputs(0)
+    kw = dict(max_det=max_det, pre_topk=64, iou_thresh=0.7, conf_thresh=0.0, fixpoint_iters=16)
+    on_card = [(b.to(cuda), c.to(cuda)) for b, c in outputs]
+    decode_topk_nms(on_card, cfg, (480, 640), **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = decode_topk_nms(on_card, cfg, (480, 640), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = decode_topk_nms(outputs, cfg, (480, 640), **kw)
+    for k in ("classes", "valid", "scores"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert (got["boxes"].cpu() - want["boxes"]).abs().max().item() <= 1e-4
+    if max_det > 1:
+        assert not want["valid"].all()  # suppressed slots compared too
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_crop_on_the_card_equals_full_crop(cuda, dtype):
+    """crop_resize_matmul_windowed at window 320 against crop_resize_matmul
+    on the card, on 1280x720 frames and square crops of side 40-300 px
+    (some past the frame's edges): f32 within 1e-4 * max(1, |full|), bf16
+    within the bf16 envelope of the f32 full crop."""
+    from pose6d_tpu_torch.ops.crop_resize import (crop_params_from_bbox, crop_resize_matmul,
+                                                  crop_resize_matmul_windowed)
+
+    g = torch.Generator().manual_seed(0)
+    frames = (torch.randint(0, 256, (8, 720, 1280, 3), generator=g) / 255.0).to(cuda)
+    side = (40 + 260 * torch.rand(8, 1, generator=g)).expand(8, 2) / 1.2  # crop = 1.2 x box
+    xy = torch.rand(8, 2, generator=g) * torch.tensor([1280.0, 720.0]) - side / 2
+    x1, y1, size = (p.to(cuda) for p in crop_params_from_bbox(torch.cat([xy, side], -1)))
+    assert 40 <= float(size.min()) and float(size.max()) <= 300
+    full = crop_resize_matmul(frames, x1, y1, size, 224)
+    got = crop_resize_matmul_windowed(frames.to(dtype), x1, y1, size, 224, 320, compute_dtype=dtype)
+    _check(got, full, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_letterbox_on_the_card_equals_cpu(cuda, dtype):
+    """The 1280x720 letterbox onto the 640x640 canvas (antialiased bilinear
+    shrink, f32, cast once) on the card against the CPU: within 1e-6 in
+    f32, one bf16 ulp in bf16."""
+    import types
+
+    from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+
+    owner = types.SimpleNamespace(cfg=PipelineConfig(), yolo_cfg=YoloConfig())
+    frames = (torch.randint(0, 256, (2, 720, 1280, 3),
+                            generator=torch.Generator().manual_seed(1)) / 255.0).to(dtype)
+    want = PosePipeline._letterbox(owner, frames)
+    got = PosePipeline._letterbox(owner, frames.to(cuda))
+    assert got[1:] == want[1:] == (0.5, 0, 140, (640, 640))
+    err = (got[0].cpu().float() - want[0].float()).abs()
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8  # bf16 ulp of values in [0.5, 1)
+    assert err.max().item() <= tol

@@ -6,76 +6,43 @@ Small size: 64x64 uint8 frames (native-resolution detection), a narrow
 YOLOv8 (width 0.125, nc 2), img_size 64, conf_thresh 0, compute f32, float
 and folded towers. The JAX pipeline runs with jit disabled (op by op) to
 keep the CPU compile out of the test's time. Boxes agree within 1e-3 px,
-rotations within 1e-4 and translations within 1e-4 m. The fused stem,
+rotations within 1e-4 and translations within 1e-4 m; also 60x64 frames
+through the letterbox (det_size 640) and rgb with geometric_correction
+off. tests/test_torch_letterbox.py and tests/test_torch_nms.py hold the
+letterbox, crop window and max_objects > 1 configurations. The fused stem,
 layer1 and stages need img_size 224; tests/test_torch_posenet_serving.py
 and tests/test_torch_posenet_variants.py cover them.
 """
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
-from pose6d_tpu.infer import PipelineConfig as JPipelineConfig, PosePipeline as JPosePipeline
-from pose6d_tpu.models.posenet import PoseNet as JPoseNet, PoseNetConfig as JPoseNetConfig
-from pose6d_tpu.models.yolo.model import YoloConfig as JYoloConfig, YoloV8 as JYoloV8
-from pose6d_tpu_torch.convert import (init_posenet_weights, init_yolo_weights, posenet_from_jax,
-                                      yolo_from_jax)
+from pose6d_tpu_torch.convert import init_posenet_weights, init_yolo_weights
 from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
 from pose6d_tpu_torch.models.posenet import PoseNetConfig
 from pose6d_tpu_torch.models.yolo.model import YoloConfig
 
-from torch_port_utils import random_flax_variables
+from torch_port_utils import PIPE_IMG as IMG, assert_pipeline_parity, make_pipeline_pair, \
+    pipeline_request
 
-S = IMG = 64
+S = IMG
 B = 2
-
-
-def _make_pipelines(variant):
-    jy = JYoloConfig(num_classes=2, width=0.125)
-    yvars = random_flax_variables(JYoloV8(jy), jnp.zeros((1, S, S, 3)), seed=1)
-    jp = JPoseNetConfig(variant=variant, img_size=IMG, dtype=jnp.float32)
-    extra = {"depth": jnp.zeros((1, IMG, IMG, 1))} if variant == "rgbd" else {}
-    pvars = random_flax_variables(JPoseNet(jp), jnp.zeros((1, IMG, IMG, 3)), seed=3, **extra)
-    jcfg = JPipelineConfig(variant=variant, img_size=IMG, conf_thresh=0.0,
-                           compute_dtype=jnp.float32)
-    jpipe = JPosePipeline(jcfg, jy, yvars, pvars, jp)
-    tcfg = PipelineConfig(variant=variant, img_size=IMG, conf_thresh=0.0,
-                          compute_dtype=torch.float32)
-    tpipe = PosePipeline(tcfg, YoloConfig(num_classes=2, width=0.125), yolo_from_jax(yvars),
-                         posenet_from_jax(pvars), PoseNetConfig(variant=variant, img_size=IMG),
-                         device="cpu")
-    return jpipe, tpipe
 
 
 @pytest.fixture(scope="module")
 def pipelines():
-    return _make_pipelines("rgbd")
+    return make_pipeline_pair("rgbd")
 
 
 @pytest.fixture(scope="module", params=["rgbd_geometric", "rgb"])
 def variant_pipelines(request):
-    return request.param, _make_pipelines(request.param)
+    return request.param, make_pipeline_pair(request.param)
 
 
 @pytest.fixture(scope="module")
 def request_data():
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)
-    depth = rng.uniform(0.2, 1.5, (B, S, S)).astype(np.float32)
-    depth[:, :8] = 0.0  # invalid depth rows
-    K = np.array([[150.0, 0, 32], [0, 150.0, 30], [0, 0, 1]], np.float32)
-    return frames, K, depth
-
-
-def _compare(got, want):
-    np.testing.assert_allclose(got["bbox_xywh"].numpy(), np.asarray(want["bbox_xywh"]), atol=1e-3)
-    np.testing.assert_allclose(got["det_score"].numpy(), np.asarray(want["det_score"]), atol=1e-5)
-    np.testing.assert_array_equal(got["class_id"].numpy(), np.asarray(want["class_id"]))
-    np.testing.assert_allclose(got["rotation"].numpy(), np.asarray(want["rotation"]), atol=1e-4)
-    np.testing.assert_allclose(got["translation"].numpy(), np.asarray(want["translation"]),
-                               atol=1e-4)
+    return pipeline_request(0, (S, S), B)
 
 
 @pytest.mark.parametrize("folded", [False, True])
@@ -88,7 +55,7 @@ def test_pipeline_matches_jax(pipelines, request_data, folded):
         want = jpipe(*request_data)
     got = tpipe(*request_data)
     assert got["rotation"].shape == (B, 4) and got["translation"].shape == (B, 3)
-    _compare(got, want)
+    assert_pipeline_parity(got, want)
 
 
 @pytest.mark.parametrize("folded", [False, True])
@@ -106,14 +73,17 @@ def test_pipeline_variants_match_jax(variant_pipelines, request_data, folded):
         want = jpipe(*args)
     got = tpipe(*args)
     assert got["rotation"].shape == (B, 4) and got["translation"].shape == (B, 3)
-    _compare(got, want)
+    assert_pipeline_parity(got, want)
 
 
 def test_pipeline_refuses_what_is_not_ported(pipelines, request_data):
-    _, tpipe = pipelines
+    jpipe, tpipe = pipelines
     frames, K, depth = request_data
-    with pytest.raises(NotImplementedError):  # letterbox branch
-        tpipe(frames[:, :60], K, depth[:, :60])
+    # 60 rows do not divide the stride 32: the letterbox branch (det_size
+    # 640), which the port serves as the JAX pipeline does
+    with jax.disable_jit():
+        want = jpipe(frames[:, :60], K, depth[:, :60])
+    assert_pipeline_parity(tpipe(frames[:, :60], K, depth[:, :60]), want)
     with pytest.raises(ValueError):  # the fused prefix needs 224 inputs
         tpipe.fold_backbones(pallas_stem=True)
     with pytest.raises(ValueError):  # and so do the fused stages
@@ -131,3 +101,22 @@ def test_pipeline_refuses_what_is_not_ported(pipelines, request_data):
                        device="cpu")
     with pytest.raises(TypeError, match="ZBackbone"):
         geo.fold_backbones()(frames, K)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_rgb_no_correction(request_data, folded):
+    """Mirror of tests/test_infer_pipeline.py::test_rgb_no_correction:
+    geometric_correction=False serves the head's translation as it is (no
+    X/Y re-derivation), as the JAX pipeline does."""
+    jpipe, tpipe = make_pipeline_pair("rgb", geometric_correction=False)
+    _, corrected = make_pipeline_pair("rgb")
+    frames, K, _ = request_data
+    if folded:
+        jpipe.fold_backbones()
+        tpipe.fold_backbones()
+        corrected.fold_backbones()
+    with jax.disable_jit():
+        want = jpipe(frames, K)
+    got = tpipe(frames, K)
+    assert_pipeline_parity(got, want)
+    assert not torch.allclose(got["translation"][:, :2], corrected(frames, K)["translation"][:, :2])

@@ -84,8 +84,11 @@ def test_conf_thresh_marks_invalid(models):
     with torch.no_grad():
         d = tdec.decode_topk_nms(tmodel(x), tcfg, (S, S), max_det=1, conf_thresh=1.1)
     assert not d["valid"].any() and (d["classes"] == -1).all() and (d["scores"] == 0).all()
-    with pytest.raises(NotImplementedError):
-        tdec.decode_topk_nms(tmodel(x), tcfg, (S, S), max_det=8)
+    # and the general NMS path: no candidate survives the threshold
+    with torch.no_grad():
+        d = tdec.decode_topk_nms(tmodel(x), tcfg, (S, S), max_det=8, conf_thresh=1.1)
+    assert d["valid"].shape == (1, 8)
+    assert not d["valid"].any() and (d["classes"] == -1).all() and (d["scores"] == 0).all()
 
 
 def test_seeded_weights_load_at_full_width():

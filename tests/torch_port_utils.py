@@ -3,6 +3,8 @@ package: flax variables with every BatchNorm randomised, as numpy trees."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 
@@ -70,6 +72,91 @@ def random_folded_stage(rng, stage: int):
         ttree[n] = {"w": torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
                     "b": torch.from_numpy(b)}
     return jtree, ttree
+
+
+# ---------------------------------------------------------------- serving
+
+PIPE_IMG = 64
+PIPE_K = np.array([[150.0, 0, 32], [0, 150.0, 30], [0, 0, 1]], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def pipeline_weights(variant: str, nc: int = 2):
+    """Random flax variables (random_flax_variables) of a narrow YOLOv8
+    (width 0.125, nc classes, seed 1) and of a PoseNet of `variant` at
+    PIPE_IMG (seed 3), with the port's state_dicts of both (convert.py):
+    (yolo_vars, pose_vars, yolo_state, pose_state). Cached per variant."""
+    import jax.numpy as jnp
+
+    from pose6d_tpu.models.posenet import PoseNet as JPoseNet, PoseNetConfig as JPoseNetConfig
+    from pose6d_tpu.models.yolo.model import YoloConfig as JYoloConfig, YoloV8 as JYoloV8
+    from pose6d_tpu_torch.convert import posenet_from_jax, yolo_from_jax
+
+    S = PIPE_IMG
+    yvars = random_flax_variables(JYoloV8(JYoloConfig(num_classes=nc, width=0.125)),
+                                  jnp.zeros((1, S, S, 3)), seed=1)
+    extra = {"depth": jnp.zeros((1, S, S, 1))} if variant == "rgbd" else {}
+    pvars = random_flax_variables(
+        JPoseNet(JPoseNetConfig(variant=variant, img_size=S, dtype=jnp.float32)),
+        jnp.zeros((1, S, S, 3)), seed=3, **extra)
+    return yvars, pvars, yolo_from_jax(yvars), posenet_from_jax(pvars)
+
+
+def make_pipeline_pair(variant: str, nc: int = 2, **cfg):
+    """The JAX PosePipeline and the port's on pipeline_weights(variant, nc),
+    both at PIPE_IMG with conf_thresh 0 and compute f32 unless `cfg` (more
+    PipelineConfig fields, set on both; compute_dtype as a torch dtype)
+    says otherwise; the port's on the CPU. Returns (jax_pipe, port_pipe)."""
+    import jax.numpy as jnp
+    import torch
+
+    from pose6d_tpu.infer import PipelineConfig as JPipelineConfig, PosePipeline as JPosePipeline
+    from pose6d_tpu.models.posenet import PoseNetConfig as JPoseNetConfig
+    from pose6d_tpu.models.yolo.model import YoloConfig as JYoloConfig
+    from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
+    from pose6d_tpu_torch.models.posenet import PoseNetConfig
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+
+    yvars, pvars, ystate, pstate = pipeline_weights(variant, nc)
+    S = PIPE_IMG
+    cfg = {"conf_thresh": 0.0, "compute_dtype": torch.float32, **cfg}
+    jcd = getattr(jnp, str(cfg["compute_dtype"]).removeprefix("torch."))
+    jpipe = JPosePipeline(
+        JPipelineConfig(variant=variant, img_size=S, **{**cfg, "compute_dtype": jcd}),
+        JYoloConfig(num_classes=nc, width=0.125), yvars, pvars,
+        JPoseNetConfig(variant=variant, img_size=S, dtype=jnp.float32))
+    tpipe = PosePipeline(
+        PipelineConfig(variant=variant, img_size=S, **cfg),
+        YoloConfig(num_classes=nc, width=0.125), ystate, pstate,
+        PoseNetConfig(variant=variant, img_size=S), device="cpu")
+    return jpipe, tpipe
+
+
+def pipeline_request(seed: int, hw, batch: int = 2):
+    """Seeded uint8 frames [batch, *hw, 3], metric depth [batch, *hw] in
+    0.2-1.5 m with its first 8 rows invalid (0), and PIPE_K, as numpy."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, (batch, *hw, 3), dtype=np.uint8)
+    depth = rng.uniform(0.2, 1.5, (batch, *hw)).astype(np.float32)
+    depth[:, :8] = 0.0
+    return frames, PIPE_K, depth
+
+
+def assert_pipeline_parity(got, want):
+    """The port's PosePipeline output against the JAX one's: boxes within
+    1e-3 px, detection scores within 1e-5, classes and validity equal,
+    rotations within 1e-4, translations within 1e-4 m."""
+    def close(k, atol):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0, atol=atol,
+                                   err_msg=k)
+
+    assert got["rotation"].shape == np.asarray(want["rotation"]).shape
+    close("bbox_xywh", 1e-3)
+    close("det_score", 1e-5)
+    for k in ("class_id", "det_valid"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    close("rotation", 1e-4)
+    close("translation", 1e-4)
 
 
 # ---------------------------------------------------------------- training
