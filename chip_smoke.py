@@ -33,8 +33,9 @@ Phases, each printed on its own line with its seconds:
      permutation of the frames, as a train epoch draws them (its source
      not in L2); the nearest-point kernel at batch 8 (the serving add's)
      and 32 (the eval step's and the multi-object add's), 500 points,
-     within 1e-7 m of float64 cdist and bit-equal over two launches and
-     under a forced plan other than addmin_plan's. The stem, layer1, stage
+     within 1e-7 m of float64 cdist, the plain version within its own
+     envelope in d^2 (addmin.expansion_d2_atol), and bit-equal over two
+     launches and under a forced plan other than addmin_plan's. The stem, layer1, stage
      and addmin rows also carry the launch floor: floor_ms, the same event
      timing around one empty launch, and stream_ms, 50 launches back to
      back in one event pair over 50, of the kernel and of the empty launch;
@@ -57,8 +58,9 @@ Phases, each printed on its own line with its seconds:
      [8, 4, ...], 1 stem and 1 layer1 launch per request, each at batch 32;
      the decode + NMS of one request's bf16 detector outputs on the card
      under torch.cuda.set_sync_debug_mode("error"), with classes, validity
-     and scores bit-equal to the same call on CPU copies and boxes within
-     DECODE_BOX_ATOL;
+     and scores bit-equal in every slot to the same call on CPU copies and
+     boxes within DECODE_BOX_ATOL, at conf 0, 0.25 and a conf between the
+     middle two distinct scores (where some slots must be invalid);
   7. slice rgbd_geometric letterbox: phase 5's pipelines on 1280x720
      frames (720 does not divide the detector's stride 32, so they are
      letterboxed onto the 640x640 canvas); the same checks, and the
@@ -80,9 +82,10 @@ Phases, each printed on its own line with its seconds:
      and deployed translation); prints the step time (CUDA events over the
      4 steps) as a smoke reading;
  10. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add and train runs, by the row of the batch they
-     ran at (the stem and layer1 at 32 in phase 6, at 8 elsewhere; addmin
-     at 8 in phase 8 and at 32 in phases 8 and 9).
+     sums over the slice, add and train runs, on the row of the kernel and
+     the batch they ran at (the stem and layer1 at 32 in phase 6, at 8
+     elsewhere; addmin at 8 in phase 8 and at 32 in phases 8 and 9); a
+     launch at a batch with no row fails the run.
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
 the script exits non-zero without it. f32 comparisons run with TF32 off
@@ -93,6 +96,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -102,6 +106,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -126,7 +131,7 @@ TRAIN_STEPS = 4        # steps of the timed train epoch, at TrainConfig's batch 
 HOLD_CYCLES = 4_000_000  # ~2 ms of spin at the H100's clock, ahead of each timed run
 FEAT_REL_L2 = 0.05     # folded bf16 vs float f32 tower features, relative L2
 POSE_ATOL = 0.01       # folded bf16 vs float f32 poses: quaternion components, metres
-ADDMIN_ATOL = 1e-6     # metres, kernel (difference form) vs plain (expansion)
+ADDMIN_ATOL = 1e-6     # metres, eval step's kernel (difference form) vs plain (expansion)
 MULTI_OBJECTS = 4      # rgb multi-object phase: poses per frame (the JAX benchmark's rgb_maxobj4)
 LB_H, LB_W = 720, 1280  # letterbox phase frames: 720 does not divide the stride 32
 CROP_WINDOW = 320      # the windowed crop's side in the letterbox phase's check
@@ -360,7 +365,7 @@ def stage_rows(geo_pipe, rgb):
         x_nchw, lib_tree = x.permute(0, 3, 1, 2), library_tree(tree, stage)
         b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * stage_macs(stage), bf16)
         rows.append({
-            "name": f"fused_stage_s{stage}", "route": "cuda",
+            **row_id(f"fused_stage_s{stage}", x.shape[0]), "route": "cuda",
             "source": "pose6d_tpu_torch/csrc/stage_wgmma.cu",
             "replaces": "pose6d_tpu/ops/pallas_block.py:310", "max_abs_err": err,
             "ms": cuda_ms(lambda: fb.fused_stage(x, wbf, stage)),
@@ -417,7 +422,7 @@ def gather_row(store, rng):
                      "plain_ms": epoch_ms(lambda i: gf._gather_rows_plain(words, i)),
                      "library_ms": epoch_ms(lambda i: words.index_select(0, i)),
                      "bound_ms": b_ms, "bound_by": b_by}
-    row = {"name": "gather_rows_u32", "route": "cuda",
+    row = {**row_id("gather_rows_u32", 32, home=32), "route": "cuda",
            "source": "pose6d_tpu_torch/csrc/gather.cu",
            "replaces": "pose6d_tpu/ops/gather_frames.py:60", **out["rgb"]}
     row.update({f"depth_{k}": v for k, v in out["depth"].items() if k != "bound_by"})
@@ -425,7 +430,15 @@ def gather_row(store, rng):
     return row
 
 
-def stem_row(tree, x, name: str) -> tuple[dict, torch.Tensor]:
+def row_id(kernel: str, batch: int, home: int = BATCH) -> dict:
+    """A kernel row's identity: its launch-count key, the batch it was
+    measured at, and its name (the key, with _b<batch> off the kernel's
+    home batch: the serving batch, or the train batch for the gather)."""
+    return {"name": kernel if batch == home else f"{kernel}_b{batch}", "kernel": kernel,
+            "batch": batch}
+
+
+def stem_row(tree, x, kernel: str) -> tuple[dict, torch.Tensor]:
     """The stem kernel on the tower's own crops x [N, 224, 224, C]: f32 and
     bf16 against the plain version, two bf16 launches bit-equal, then timed
     beside the plain version, cuDNN's conv + ReLU + maxpool, its bound and
@@ -435,7 +448,8 @@ def stem_row(tree, x, name: str) -> tuple[dict, torch.Tensor]:
     from pose6d_tpu_torch.ops import fused_block as fb
 
     bf16, f32 = torch.bfloat16, torch.float32
-    C = x.shape[-1]
+    C, ident = x.shape[-1], row_id(kernel, x.shape[0])
+    name = ident["name"]
     w32, wbf = fb.pack_stem_weights(tree, f32), fb.pack_stem_weights(tree, bf16)
     err = compare_f32(fb.fused_stem(x.float(), w32), fb.reference_stem(x.float(), w32), name)
     oracle = fb.reference_stem(x.float(), (wbf[0].float(), wbf[1]))
@@ -450,7 +464,7 @@ def stem_row(tree, x, name: str) -> tuple[dict, torch.Tensor]:
     ops = 2.0 * x.shape[0] * 112 * 112 * 64 * 49 * C
     b_ms, b_by = bound_ms(nbytes(x, *wbf, out), ops, bf16)
     return {
-        "name": name, "route": "cuda", "source": "pose6d_tpu_torch/csrc/stem_tc.cu",
+        **ident, "route": "cuda", "source": "pose6d_tpu_torch/csrc/stem_tc.cu",
         "replaces": "pose6d_tpu/ops/pallas_block.py:439", "max_abs_err": err,
         "shape": list(x.shape),
         "ms": cuda_ms(lambda: fb.fused_stem(x, wbf)),
@@ -463,7 +477,7 @@ def stem_row(tree, x, name: str) -> tuple[dict, torch.Tensor]:
     }, out
 
 
-def layer1_row(tree, x, name: str) -> dict:
+def layer1_row(tree, x, kernel: str) -> dict:
     """layer1 on the tower's real stem output x [N, 56, 56, 64]: f32 and
     bf16 against the plain version, two bf16 launches bit-equal, then timed
     beside the plain version, the cuDNN bottleneck sequence, its bound and
@@ -471,6 +485,8 @@ def layer1_row(tree, x, name: str) -> dict:
     from pose6d_tpu_torch.ops import fused_block as fb
 
     bf16, f32 = torch.bfloat16, torch.float32
+    ident = row_id(kernel, x.shape[0])
+    name = ident["name"]
     w32, wbf = fb.pack_layer1_weights(tree, f32), fb.pack_layer1_weights(tree, bf16)
     err = compare_f32(fb.fused_layer1(x.float(), w32), fb.reference_layer1(x.float(), w32), name)
     oracle = fb.reference_layer1(x.float(), tuple(t.float() for t in wbf))
@@ -484,7 +500,7 @@ def layer1_row(tree, x, name: str) -> dict:
     b_ms, b_by = bound_ms(nbytes(x, *wbf, out), 2.0 * x.shape[0] * stage_macs(1), bf16)
     log_plan(name, 1, x.shape[0])
     return {
-        "name": name, "route": "cuda", "source": "pose6d_tpu_torch/csrc/stage_wgmma.cu",
+        **ident, "route": "cuda", "source": "pose6d_tpu_torch/csrc/stage_wgmma.cu",
         "replaces": "pose6d_tpu/ops/pallas_block.py:187", "max_abs_err": err,
         "shape": list(x.shape),
         "ms": cuda_ms(lambda: fb.fused_layer1(x, wbf)),
@@ -515,8 +531,8 @@ def phase_kernels(pipe, geo_pipe, multi_pipe, tower_inputs, multi_inputs, store,
     rows += stage_rows(geo_pipe, tower_inputs["rgb"])
     tree = fold_bn_resnet(multi_pipe.posenet.backbone)
     x = multi_inputs["rgb"].contiguous()
-    row, out = stem_row(tree, x, f"fused_stem_c3_b{x.shape[0]}")
-    rows += [row, layer1_row(tree, out, f"fused_layer1_b{x.shape[0]}")]
+    row, out = stem_row(tree, x, "fused_stem_c3")
+    rows += [row, layer1_row(tree, out, "fused_layer1")]
 
     # addmin on centred model points under two seeded poses per sample, at
     # the serving add's batch and the train eval step's
@@ -544,12 +560,11 @@ def phase_kernels(pipe, geo_pipe, multi_pipe, tower_inputs, multi_inputs, store,
 
 def addmin_row(pred, gt) -> dict:
     """The nearest-point kernel on [B, 500, 3] pairs: against float64 cdist
-    within 1e-7 m, and the plain version (the expansion) within ADDMIN_ATOL
-    at the serving batch (as before the redesign), else (the eval step's
-    batch of 32, added with it) within the expansion's own envelope in d^2,
-    addmin.expansion_d2_atol: on these inputs the plain version strays past
-    1e-6 m from float64 near zero (tests/test_torch_addmin_plan.py). Then
-    bit-equal over two launches and under a forced plan that addmin_plan
+    within 1e-7 m, and the plain version (the expansion) within the
+    expansion's own envelope in d^2, addmin.expansion_d2_atol: the
+    expansion is exact in d^2 only, and near zero it strays past 1e-6 m in
+    d from float64 (tests/test_torch_addmin_plan.py). Then bit-equal over
+    two launches and under a forced plan that addmin_plan
     never picks (3 splits), and timed beside the plain version, cdist and
     its bound, with the floor."""
     from pose6d_tpu_torch.ops import addmin
@@ -563,12 +578,9 @@ def addmin_row(pred, gt) -> dict:
     err_exact = (got.double() - exact).abs().max().item()
     what = f"addmin [{B}, {P}, 3]"
     check(err_exact <= 1e-7, f"{what}: max err vs f64 {err_exact:.3g} > 1e-7")
-    if B == BATCH:
-        check(err <= ADDMIN_ATOL, f"{what}: max err vs plain {err:.3g} > {ADDMIN_ATOL}")
-    else:
-        err_d2 = (got.double() ** 2 - want.double() ** 2).abs().max().item()
-        tol = addmin.expansion_d2_atol(pred, gt)
-        check(err_d2 <= tol, f"{what}: max err vs plain in d^2 {err_d2:.3g} > {tol:.3g} m^2")
+    err_d2 = (got.double() ** 2 - want.double() ** 2).abs().max().item()
+    tol = addmin.expansion_d2_atol(pred, gt)
+    check(err_d2 <= tol, f"{what}: max err vs plain in d^2 {err_d2:.3g} > {tol:.3g} m^2")
     check(torch.equal(addmin.pairwise_min_dist_kernel(pred, gt), got),
           f"{what}: two launches differ")
     check(torch.equal(addmin.pairwise_min_dist_kernel(pred, gt, plan=other), got),
@@ -578,7 +590,7 @@ def addmin_row(pred, gt) -> dict:
     log(f"  addmin [{B}, {P}, 3] plan {plan}: {plan.blocks(B, P)} blocks x {plan.threads} "
         f"threads; bit-equal over two launches and under {other}")
     return {
-        "name": "pairwise_min_dist" if B == BATCH else f"pairwise_min_dist_b{B}", "route": "cuda",
+        **row_id("pairwise_min_dist", B), "route": "cuda",
         "source": "pose6d_tpu_torch/csrc/addmin.cu",
         "replaces": "pose6d_tpu/ops/pallas_addmin.py:67", "max_abs_err": err,
         "shape": [B, P, 3],
@@ -733,8 +745,14 @@ def check_decode_on_card(pipe, frames) -> None:
     """The pipeline's decode + NMS of one request's detector outputs (bf16)
     on the card under torch.cuda.set_sync_debug_mode("error"), against the
     same call on CPU copies of those outputs: classes, validity and scores
-    equal bit for bit (the rankings are stable sorts, the sigmoid float64
-    rounded once), boxes within DECODE_BOX_ATOL px."""
+    equal bit for bit in every slot (the rankings are stable sorts, the
+    sigmoid float64 rounded once), boxes within DECODE_BOX_ATOL px. At the
+    pipeline's conf_thresh, at the JAX default 0.25, and between the middle
+    two distinct scores of the first decode (bf16 logits tie often), where
+    some slots must go invalid: those are compacted in index order behind
+    the valid ones."""
+    from pose6d_tpu_torch.infer.pipeline import PosePipeline
+
     dev = pipe.device
     with torch.inference_mode():
         f = torch.from_numpy(frames).to(dev)
@@ -742,20 +760,36 @@ def check_decode_on_card(pipe, frames) -> None:
         outputs = pipe.yolo(canvas.to(pipe.yolo_cfg.dtype))
         check(all(b.dtype == c.dtype == torch.bfloat16 for b, c in outputs),
               "the detector's outputs are not bf16")
+        cpu_outputs = [(b.cpu(), c.cpu()) for b, c in outputs]
         sync(dev)
-        torch.cuda.set_sync_debug_mode("error")  # any wait for the card raises
-        try:
-            got = pipe._decode(outputs, det_hw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        want = pipe._decode([(b.cpu(), c.cpu()) for b, c in outputs], det_hw)
-    for k in ("classes", "valid", "scores"):
-        check(torch.equal(got[k].cpu(), want[k]), f"decode {k}: card and CPU differ")
-    box_err = (got["boxes"].cpu() - want["boxes"]).abs().max().item()
-    check(box_err <= DECODE_BOX_ATOL, f"decode boxes: card vs CPU {box_err:.3g} px")
-    log(f"  decode + NMS {tuple(got['boxes'].shape[:2])} on the card with no wait for it: "
-        f"classes, valid, scores bit-equal to the CPU's, boxes within {box_err:.3g} px; "
-        f"{int(got['valid'].sum())} valid slots")
+        first = None
+        for conf in (pipe.cfg.conf_thresh, 0.25, None):
+            median = conf is None
+            if median:  # between the middle two distinct scores: some slots go invalid
+                u = first["scores"].unique()
+                conf = (u[(len(u) - 1) // 2].item() + u[len(u) // 2].item()) / 2
+            owner = types.SimpleNamespace(cfg=dataclasses.replace(pipe.cfg, conf_thresh=conf),
+                                          yolo_cfg=pipe.yolo_cfg)
+            torch.cuda.set_sync_debug_mode("error")  # any wait for the card raises
+            try:
+                got = PosePipeline._decode(owner, outputs, det_hw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = PosePipeline._decode(owner, cpu_outputs, det_hw)
+            first = want if first is None else first
+            for k in ("classes", "valid", "scores"):
+                check(torch.equal(got[k].cpu(), want[k]),
+                      f"decode {k} at conf {conf:.6g}: card and CPU differ")
+            box_err = (got["boxes"].cpu() - want["boxes"]).abs().max().item()
+            check(box_err <= DECODE_BOX_ATOL,
+                  f"decode boxes at conf {conf:.6g}: card vs CPU {box_err:.3g} px")
+            n_valid, n = int(want["valid"].sum()), want["valid"].numel()
+            if median:
+                check(0 < n_valid < n, f"decode at conf {conf:.6g}: {n_valid} of {n} slots "
+                                       f"valid, expected some valid and some invalid")
+            log(f"  decode + NMS {tuple(got['boxes'].shape[:2])} at conf {conf:.6g} on the "
+                f"card with no wait for it: classes, valid, scores bit-equal to the CPU's in "
+                f"every slot, boxes within {box_err:.3g} px; {n_valid} of {n} slots valid")
 
 
 def check_windowed_crop(frames, rng, dev) -> None:
@@ -871,8 +905,9 @@ def check_eval_addmin(kernel_calls, metric_calls, batch: int) -> float:
     against the plain version and float64 cdist on the same inputs, then
     each add_metrics result (learned and deployed translation) against
     add_metrics on CPU copies of its inputs, which runs the plain version.
-    Tolerances as in phases 3 and 6, scaled where the values are large: the
-    point checks by the largest distance beyond 1 m, the mm means by 1e-5
+    The point checks hold the kernel within ADDMIN_ATOL of the plain
+    version and 1e-7 m of float64, scaled by the largest distance beyond
+    1 m, the mm means by 1e-5
     of their value beyond 100 mm (an untrained network's predictions land
     tens of centimetres off, and the card and the CPU sum 32 x 500 f32
     terms in different orders). The accuracies and counts are equal.
@@ -1118,14 +1153,17 @@ def main() -> int:
         f"fused_stage s1 equals fused_layer1 bit for bit, the gather is bit-equal "
         f"({time.perf_counter() - t0:.1f}s)")
 
-    # launches by kernel row: a kernel's launches at a batch that has a row
-    # of its own (e.g. fused_stem_c3_b32) go there, the rest to its row
-    names = {r["name"] for r in rows}
-    launches = collections.Counter()
+    # launches by kernel row: each (kernel, batch) a run launches has its row
+    by_id = {(r["kernel"], r["batch"]): r for r in rows}
+    check(len(by_id) == len(rows), "two kernel rows share a kernel and a batch")
+    for r in rows:
+        r["launches"] = 0
 
     def count(counts: dict, batch: int) -> None:
         for k, v in counts.items():
-            launches[f"{k}_b{batch}" if f"{k}_b{batch}" in names else k] += v
+            check((k, batch) in by_id, f"{v} launches of {k} at batch {batch}: no row "
+                                       f"measured that kernel at that batch")
+            by_id[(k, batch)]["launches"] += v
 
     geo_stages = {"fused_stem_c3": 1, **{f"fused_stage_s{s}": 1 for s in STAGES_SERVED}}
     outs, serving = {}, {}
@@ -1170,10 +1208,9 @@ def main() -> int:
         f"(8 epoch + 2 eval batch), addmin {counts['pairwise_min_dist']} "
         f"({time.perf_counter() - t0:.1f}s)")
 
-    for r in rows:
-        r["launches"] = launches.get(r["name"], 0)
-        if r["name"] == "pairwise_min_dist_b32":  # phase 3's inputs and the eval step's
-            r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
+    # the b32 addmin row: phase 3's inputs and the eval step's
+    r = by_id[("pairwise_min_dist", 32)]
+    r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")

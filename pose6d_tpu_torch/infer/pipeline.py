@@ -56,12 +56,14 @@ class PipelineConfig:
     # greedy-NMS fixpoint iterations: exact for suppression chains up to
     # this depth; None = nms_pre_topk iterations (always exact)
     nms_fixpoint_iters: int | None = 16
-    max_objects: int = 1  # poses per frame: the top-M detections by score
-    # max_objects=1: decode the best anchor alone (slot 0 of the general
-    # NMS path, which never suppresses the global best)
-    nms_top1_fast: bool = True
+    # poses per frame: the top-M detections by score. M = 1 decodes the
+    # best anchor alone (slot 0 of the general NMS path, which never
+    # suppresses the global best)
+    max_objects: int = 1
     # crop from a per-sample window of this side instead of the whole frame
-    # (must exceed the largest crop side); None = the whole frame
+    # (must exceed the largest crop side), for frames much larger than the
+    # crops, e.g. 1280x720 with LineMOD objects (crops < 300 px) at 320;
+    # None = the whole frame
     crop_window: int | None = None
     geometric_correction: bool = True  # rgb, rgbd: re-derive X/Y at deployment
     # towers, crops and frames
@@ -147,10 +149,10 @@ class PosePipeline:
 
     def _decode(self, outputs, det_hw) -> dict:
         """The detector's raw maps -> detections [B, D, ...] in canvas
-        pixels: the top-1 decode (D = 1) when max_objects == 1 and
-        nms_top1_fast, else NMS with D = max(8, max_objects)."""
+        pixels: the top-1 decode (D = 1) when max_objects == 1, else NMS
+        with D = max(8, max_objects)."""
         cfg = self.cfg
-        top1 = cfg.max_objects == 1 and cfg.nms_top1_fast
+        top1 = cfg.max_objects == 1
         return decode_topk_nms(outputs, self.yolo_cfg, det_hw,
                                max_det=1 if top1 else max(8, cfg.max_objects),
                                pre_topk=cfg.nms_pre_topk, iou_thresh=cfg.iou_thresh,

@@ -1,5 +1,5 @@
-"""The letterbox, the windowed crop and src_scale of pose6d_tpu_torch
-against the JAX package, and the pipeline configurations that use them.
+"""The letterbox and the windowed crop of pose6d_tpu_torch against the
+JAX package, and the pipeline configurations that use them.
 
 Small size: frames of tens of pixels, a narrow YOLOv8 (width 0.125, nc 2)
 at det_size 64, img_size 64, compute f32, the JAX pipeline with jit
@@ -75,9 +75,9 @@ def test_native_frames_skip_the_letterbox():
 
 @pytest.mark.parametrize("hw", [DOWN, UP], ids=["down", "up"])
 def test_detect_best_unmaps_boxes(hw):
-    """_detect_best on a letterboxed frame: the general decode (8 slots,
-    nms_top1_fast off) mapped back to the frame, [B, 8, 4] xywh."""
-    jpipe, tpipe = make_pipeline_pair("rgb", det_size=DET, nms_top1_fast=False)
+    """_detect_best on a letterboxed frame: the general decode (8 slots, as
+    max_objects=3 asks) mapped back to the frame, [B, 8, 4] xywh."""
+    jpipe, tpipe = make_pipeline_pair("rgb", det_size=DET, max_objects=3)
     frames = pipeline_request(1, hw)[0].astype(np.float32) / 255.0
     with jax.disable_jit():
         want_box, want = jpipe._detect_best(jpipe.yolo_variables, jnp.asarray(frames))
@@ -100,10 +100,15 @@ def test_detect_best_unmaps_boxes(hw):
                                rtol=1e-5, atol=1e-4)
 
 
-def _crop_case(seed=0):
-    """uint8 frames [6, 72, 112, 3] and crop parameters with negative
-    origins, a crop past the right edge and sizes 8-60."""
-    img = np.random.default_rng(seed).integers(0, 256, (6, 72, 112, 3), dtype=np.uint8)
+def _crop_case(seed=0, src="rgb"):
+    """Frames [6, 72, 112, C] and crop parameters with negative origins, a
+    crop past the right edge and sizes 8-60: src "rgb" is uint8 frames
+    /255 (C = 3), "depth" metric depth in 0.2-1.5 m (C = 1)."""
+    rng = np.random.default_rng(seed)
+    if src == "rgb":
+        img = (rng.integers(0, 256, (6, 72, 112, 3)) / 255.0).astype(np.float32)
+    else:
+        img = rng.uniform(0.2, 1.5, (6, 72, 112, 1)).astype(np.float32)
     x1 = np.array([-10, 5, 30, 90, 0, 60], np.float32)
     y1 = np.array([-4, 2, 20, 40, 50, 30], np.float32)
     size = np.array([30, 17, 40, 45, 60, 8], np.float32)
@@ -120,33 +125,29 @@ def _assert_crop_close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("src_scale", [1.0, 1 / 255.0], ids=["unit", "u8"])
+@pytest.mark.parametrize("src", ["rgb", "depth"])
 @pytest.mark.parametrize("window", [None, 48], ids=["full", "window48"])
-def test_crop_matches_jax(window, src_scale, dtype):
-    """crop_resize_matmul and crop_resize_matmul_windowed, with src_scale
-    1/255 on the uint8 frames or 1 on frames already /255."""
+def test_crop_matches_jax(window, src, dtype):
+    """crop_resize_matmul and crop_resize_matmul_windowed on frames /255
+    and on metric depth maps."""
     td, jd = DTYPES[dtype]
-    img, x1, y1, size = _crop_case()
-    src = img if src_scale != 1.0 else (img / 255.0).astype(np.float32)
-    t = [torch.from_numpy(a) for a in (src, x1, y1, size)]
-    j = [jnp.asarray(a) for a in (src, x1, y1, size)]
+    img, x1, y1, size = _crop_case(src=src)
+    t = [torch.from_numpy(a) for a in (img, x1, y1, size)]
+    j = [jnp.asarray(a) for a in (img, x1, y1, size)]
     if window is None:
-        got = tcr.crop_resize_matmul(*t, 24, compute_dtype=td, src_scale=src_scale)
-        want = jcr.crop_resize_matmul(*j, 24, compute_dtype=jd, src_scale=src_scale)
+        got = tcr.crop_resize_matmul(*t, 24, compute_dtype=td)
+        want = jcr.crop_resize_matmul(*j, 24, compute_dtype=jd)
     else:
-        got = tcr.crop_resize_matmul_windowed(*t, 24, window, compute_dtype=td,
-                                              src_scale=src_scale)
-        want = jcr.crop_resize_matmul_windowed(*j, 24, window, compute_dtype=jd,
-                                               src_scale=src_scale)
-    assert got.shape == (6, 24, 24, 3) and got.dtype == torch.float32
+        got = tcr.crop_resize_matmul_windowed(*t, 24, window, compute_dtype=td)
+        want = jcr.crop_resize_matmul_windowed(*j, 24, window, compute_dtype=jd)
+    assert got.shape == (6, 24, 24, img.shape[-1]) and got.dtype == torch.float32
     _assert_crop_close(got, want, dtype)
 
 
 def test_windowed_crop_equals_full_crop():
     """Sizes under window - 2: the window changes nothing but the work.
     A size above it is clamped (its outer border lost), as in JAX."""
-    img, x1, y1, size = _crop_case(1)
-    t = [torch.from_numpy(a) for a in ((img / 255.0).astype(np.float32), x1, y1, size)]
+    t = [torch.from_numpy(a) for a in _crop_case(1)]
     full = tcr.crop_resize_matmul(*t, 24)
     np.testing.assert_allclose(tcr.crop_resize_matmul_windowed(*t, 24, 64).numpy(),
                                full.numpy(), rtol=0, atol=1e-5)
