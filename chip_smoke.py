@@ -66,10 +66,28 @@ Phases, each printed on its own line with its seconds:
      letterboxed onto the 640x640 canvas); the same checks, and the
      windowed crop (CROP_WINDOW) against the full-frame crop on those
      frames, f32 within F32_RTOL and bf16 within the bf16 envelope;
-  8. add: ADD / ADD-S of each slice's poses (all 32 of the multi-object
+  8. slice rgbd int8: the JAX benchmark's rgbd_int8 configuration
+     (YOLOv8n in bf16, nc 13, conf_thresh 0, nms_pre_topk 32, compute
+     bf16, seeded weights, its own generator SEED + 11): the towers folded
+     with the stem and layer1 kernels, then quantize_backbones(frames, K,
+     include_detector=True) with no calibration depth, as the benchmark
+     calls it; 3 requests of 8 frames under
+     torch.cuda.set_sync_debug_mode("error"). Checks finite outputs and
+     unit quaternions, no stem, stage or layer1 launch (the int8 towers
+     win over the folded ones), conv_s8s32 on the card bit-equal to the
+     same call on CPU copies for every distinct conv geometry of the
+     towers and the detector on the requests' own int8 activations, the
+     int8 tower features within INT8_FEAT_REL_L2 of the int8 forward on
+     CPU copies of the tree and crops, and the cosine of the int8 towers
+     against the folded bf16 ones and of the int8 detector's maps against
+     the bf16 detector's above INT8_MIN_COS; then times, by CUDA events,
+     the int8 tower beside the folded bf16 tower through the kernels and
+     through cuDNN at batch 8 and 32, and the int8 detector beside the
+     bf16 one at batch 8, each beside its bound;
+  9. add: ADD / ADD-S of each slice's poses (all 32 of the multi-object
      path's) against seeded ground truth through the nearest-point kernel,
      against the plain version;
-  9. train rgbd: the device-resident train step at full width (two
+ 10. train rgbd: the device-resident train step at full width (two
      ResNet50 towers at 224, attention dim 2048, LayerNorm/GELU heads with
      their dropout; TrainConfig's defaults: batch 32, f32, lr 1e-4) from a
      seeded from-scratch init, on seeded uint8 frames and uint16 depth
@@ -81,11 +99,13 @@ Phases, each printed on its own line with its seconds:
      and depth per step) and 2 addmin launches in the eval step (learned
      and deployed translation); prints the step time (CUDA events over the
      4 steps) as a smoke reading;
- 10. kernels: one JSON line with every kernel's numbers; launches are the
+ 11. kernels: one JSON line with every kernel's numbers; launches are the
      sums over the slice, add and train runs, on the row of the kernel and
      the batch they ran at (the stem and layer1 at 32 in phase 6, at 8
-     elsewhere; addmin at 8 in phase 8 and at 32 in phases 8 and 9); a
-     launch at a batch with no row fails the run.
+     elsewhere; addmin at 8 in phase 9 and at 32 in phases 9 and 10); a
+     launch at a batch with no row fails the run. The int8 convolution is
+     torch._int_mm, a library call as the JAX package's is XLA's, and has
+     no row.
 
 The last line is {"ok": true, "device": {...}}; any failed check raises and
 the script exits non-zero without it. f32 comparisons run with TF32 off
@@ -119,8 +139,8 @@ N_POINTS = 500
 N_OBJ = 15
 LINEMOD_K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899],
                       [0.0, 0.0, 1.0]], np.float32)
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores, f32 CUDA cores, HBM3
+PEAK_OPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 PEAK_BYTES_S = 3.35e12
 F32_RTOL = 1e-4        # kernel vs plain in f32: max err <= F32_RTOL * max(1, |ref|max)
 BF16_MEAN_REL = 0.02   # bf16 kernel vs f32 plain: mean err < 0.02 * std(ref)
@@ -136,6 +156,8 @@ MULTI_OBJECTS = 4      # rgb multi-object phase: poses per frame (the JAX benchm
 LB_H, LB_W = 720, 1280  # letterbox phase frames: 720 does not divide the stride 32
 CROP_WINDOW = 320      # the windowed crop's side in the letterbox phase's check
 DECODE_BOX_ATOL = 1e-4  # px, decode on the card vs on the CPU (the DFL softmax's exp)
+INT8_FEAT_REL_L2 = 1e-3  # int8 tower features, card vs CPU copies (exact int32 products)
+INT8_MIN_COS = 0.9     # int8 vs bf16 towers and detector maps: catches scale or sign faults
 
 
 class CheckFailed(RuntimeError):
@@ -157,9 +179,9 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, hold_cycles: int = HOLD_CYCLES) -> float:
     """Median milliseconds of fn() over reps runs, each between CUDA events.
-    Each run starts behind a HOLD_CYCLES spin on the stream, so that the
+    Each run starts behind a hold_cycles spin on the stream, so that the
     host has enqueued fn's launches before the start event fires: the
     events then time the card's work, not the wrapper's host overhead."""
     for _ in range(warmup):
@@ -167,13 +189,31 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold_cycles)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def paced_ms(fn) -> tuple[float, float]:
+    """(card ms, host ms) of a call that enqueues hundreds of launches: the
+    host's time to enqueue fn() (median of 5, each after a sync), then
+    cuda_ms behind a spin that outlasts that enqueue (HOLD_CYCLES, ~2 ms,
+    plus 1.5x the enqueue time), so that the events time the card's work
+    alone."""
+    fn()
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(host)
+    hold = HOLD_CYCLES + int(1.5 * host_ms * HOLD_CYCLES / 2)
+    return cuda_ms(fn, reps=10, warmup=1, hold_cycles=hold), host_ms
 
 
 def floor_ms() -> float:
@@ -1023,23 +1063,24 @@ def phase_train(store, rng):
     totals = collections.Counter(counts)
     totals.update(gathers)
     totals.update(ev)
-    profile_step(epoch, state, store, {k: v[TRAIN_STEPS + 1:TRAIN_STEPS + 2]
-                                       for k, v in meta.items()}, g, step_ms)
+    step_meta = {k: v[TRAIN_STEPS + 1:TRAIN_STEPS + 2] for k, v in meta.items()}
+    profile_kernels(lambda: epoch(state, store.rgb_frames, store.depth_frames, step_meta, g),
+                    "one step", step_ms)
     return totals, {"step_ms": step_ms, "host_enqueue_ms": host_enqueue_ms,
                     "losses": losses.tolist(), "addmin_max_abs_err": addmin_err}
 
 
-def profile_step(epoch, state, store, meta, g, step_ms: float) -> None:
-    """One more train step under torch.profiler: the card's kernel time by
-    kernel, its sum, and that sum over the unprofiled step time (the busy
+def profile_kernels(fn, what: str, unprofiled_ms: float, top: int = 10) -> None:
+    """fn() once more under torch.profiler: the card's kernel time by
+    kernel, its sum, and that sum over fn's unprofiled time (the busy
     share; the rest is the card waiting for the host). Printed only; where
     the profiler sees no CUDA kernel, it says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        epoch(state, store.rgb_frames, store.depth_frames, meta, g)
-        sync(store.device)
+        fn()
+        torch.cuda.synchronize()
     # kernels only: a user range (e.g. the optimizer's step) would count its
     # kernels a second time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
@@ -1048,11 +1089,187 @@ def profile_step(epoch, state, store, meta, g, step_ms: float) -> None:
     if not kernels or total_us <= 0:
         log("  profile: not measured (the profiler recorded no CUDA kernel time)")
         return
-    log(f"  profile of one step: {total_us / 1e3:.3f} ms of kernels in {len(kernels)} kinds, "
-        f"{sum(e.count for e in kernels)} launches; busy share {total_us / 1e3 / step_ms:.3f} "
-        f"of the unprofiled {step_ms:.3f} ms/step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    log(f"  profile of {what}: {total_us / 1e3:.3f} ms of kernels in {len(kernels)} kinds, "
+        f"{sum(e.count for e in kernels)} launches; busy share "
+        f"{total_us / 1e3 / unprofiled_ms:.3f} of the unprofiled {unprofiled_ms:.3f} ms")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def conv_geometry_check(calls) -> tuple[int, int]:
+    """conv_s8s32 on the card against the same call on CPU copies, once for
+    each distinct geometry (input shape, kernel shape, stride, padding)
+    among the recorded calls: the int32 outputs equal bit for bit. Returns
+    (geometries, multiply-adds checked)."""
+    from pose6d_tpu_torch.ops import quant
+
+    seen, macs = set(), 0
+    for (xq, w, *rest), _, out in calls:
+        key = (tuple(xq.shape), tuple(w.shape), *rest)
+        if key in seen:
+            continue
+        seen.add(key)
+        want = quant.conv_s8s32(xq.cpu(), w.cpu(), *rest)
+        check(torch.equal(out.cpu(), want), f"conv_s8s32 {key}: the card's int32 output "
+                                            f"differs from the CPU's")
+        macs += out.numel() * w[0].numel()
+    return len(seen), macs
+
+
+def int8_macs(fn) -> int:
+    """Multiply-adds of the int8 convolutions that fn() runs (counted by
+    spying on conv_s8s32, K unpadded)."""
+    from pose6d_tpu_torch.models.yolo import quant as yquant
+    from pose6d_tpu_torch.ops import quant
+
+    calls = []
+    with spy(quant, "conv_s8s32", calls), spy(yquant, "conv_s8s32", calls):
+        fn()
+    return sum(out.numel() * args[1][0].numel() for args, _, out in calls)
+
+
+def cosine(a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def phase_int8(pipe, rng):
+    """The int8 rgbd path (see the module docstring, phase 8): calibration,
+    3 requests with no wait for the card and no fused-kernel launch, the
+    card's int8 convolutions and towers against the CPU's, the int8 towers
+    and detector against bf16, and their times beside the bf16 towers' and
+    detector's. Returns the last request's outputs and the readings."""
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.models.posenet_serving import backbone_features
+    from pose6d_tpu_torch.models.yolo import quant as yquant
+    from pose6d_tpu_torch.ops import quant
+
+    dev, bf16 = pipe.device, torch.bfloat16
+    frames, depths = make_requests(rng)
+    K = torch.from_numpy(LINEMOD_K).to(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pipe.quantize_backbones(frames[0], LINEMOD_K, include_detector=True)
+    sync(dev)
+    log(f"  quantize_backbones (calibration on {BATCH} frames, no depth, detector "
+        f"included): {time.perf_counter() - t0:.1f}s")
+    reqs = [(torch.from_numpy(f).to(dev), torch.from_numpy(d).to(dev))
+            for f, d in zip(frames, depths)]
+    pipe(reqs[0][0], K, reqs[0][1])  # warm-up request (cuBLAS set-up), not counted
+    sync(dev)
+
+    _build.launch_counts.clear()
+    calls, outs = [], []
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # any wait for the card raises
+    try:
+        with spy(quant, "conv_s8s32", calls), spy(yquant, "conv_s8s32", calls):
+            outs.append(pipe(reqs[1][0], K, reqs[1][1]))
+        for f, d in reqs[2:]:
+            outs.append(pipe(f, K, d))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync(dev)
+    request_ms = (time.perf_counter() - t0) * 1e3 / N_REQUESTS
+    counts = dict(_build.launch_counts)
+    check(counts == {}, f"int8 requests launched {counts}: the int8 towers must win over "
+                        f"the folded towers' stem and layer1 kernels")
+    for out in outs:
+        for k in ("rotation", "translation", "bbox_xywh"):
+            check(bool(torch.isfinite(out[k]).all()), f"int8 {k} not finite")
+        check(tuple(out["rotation"].shape) == (BATCH, 4), "int8 rotation shape")
+        norms = torch.linalg.norm(out["rotation"], dim=-1)
+        check(bool(((norms - 1).abs() < 1e-3).all()), f"int8 rotation norms {norms.tolist()}")
+    n_geo, geo_macs = conv_geometry_check(calls)
+    log(f"  {N_REQUESTS} requests with no wait for the card and no kernel launch; "
+        f"conv_s8s32 on the card bit-equal to the CPU's for all {n_geo} distinct conv "
+        f"geometries of the towers and the detector ({len(calls)} calls a request, "
+        f"{geo_macs / 1e9:.2f} G multiply-adds checked)")
+    log(f"  smoke reading, not a throughput: {request_ms:.3f} ms a request, host clock over "
+        f"the {N_REQUESTS} requests (the first spied), {BATCH / request_ms * 1e3:.1f} frames/s")
+    del calls
+
+    readings = {"request_ms": request_ms}
+    with torch.inference_mode():
+        f, d = reqs[1]
+        st = pipe.crop_stage(f, K.expand(BATCH, 3, 3), d)
+        towers = pipe.posenet.tower_inputs(st["inputs"]["rgb"], st["inputs"]["depth"])
+        for name, x in towers.items():
+            q, fold = pipe._quantized[name], pipe._folded[name]
+            got = backbone_features(pipe.posenet, name, x, bf16, quantized=q)
+            cpu_q = {k: {f: v.cpu() for f, v in e.items()} for k, e in q.items()}
+            want = quant.int8_resnet50_forward(cpu_q, x.cpu(), bf16).float()
+            rel = ((got.cpu() - want).norm() / want.norm()).item()
+            check(rel <= INT8_FEAT_REL_L2,
+                  f"{name}: int8 features, card vs CPU rel L2 {rel:.3g} > {INT8_FEAT_REL_L2}")
+            cos = cosine(got, backbone_features(pipe.posenet, name, x, bf16, fold))
+            check(cos >= INT8_MIN_COS, f"{name}: int8 vs folded bf16 cosine {cos:.4f}")
+            readings[name] = {"card_vs_cpu_rel_l2": rel, "cos_vs_bf16": cos}
+        canvas = f.to(bf16) / 255.0
+        int8_maps = pipe._yolo_int8(canvas)
+        bf16_maps = pipe.yolo(canvas)
+        det_cos = cosine(torch.cat([t.flatten() for pair in int8_maps for t in pair]),
+                         torch.cat([t.flatten() for pair in bf16_maps for t in pair]))
+        check(det_cos >= INT8_MIN_COS, f"int8 vs bf16 detector maps cosine {det_cos:.4f}")
+        readings["detector"] = {"cos_vs_bf16": det_cos}
+        log(f"  int8 vs CPU and vs bf16: {readings}")
+        readings["times"] = int8_times(pipe, towers, canvas)
+    return outs[-1], readings
+
+
+def int8_times(pipe, towers, canvas) -> list:
+    """The card's times (paced_ms) of the int8 towers (batch 8 and 32: the
+    request's crops, and four copies of them) beside the folded bf16 tower
+    through the stem and layer1 kernels and through cuDNN alone, and of the
+    int8 detector beside the bf16 one at batch 8, with the host's enqueue
+    time of each; each beside its bound: operations (the int8 convs'
+    multiply-adds, twice) over the int8 or bf16 peak, or bytes (input,
+    weights, output once) over the memory rate."""
+    from pose6d_tpu_torch.ops import quant
+
+    bf16, rows = torch.bfloat16, []
+    for name, x8 in towers.items():
+        q, fold = pipe._quantized[name], pipe._folded[name]
+        w_int8 = sum(nbytes(e["w"]) for e in q.values())
+        w_bf16 = sum(nbytes(e["w"]) for e in fold["tree"].values())
+        for x in (x8, torch.cat([x8] * 4)):
+            macs = int8_macs(lambda: quant.int8_resnet50_forward(q, x, bf16))
+            out_bytes = x.shape[0] * 2048 * 2
+            runs = {
+                "int8": (lambda: quant.int8_resnet50_forward(q, x, bf16), torch.int8, w_int8),
+                "bf16_kernels": (lambda: quant.folded_resnet50_forward(
+                    fold["tree"], x, bf16, pallas_l1=fold["pallas_l1"],
+                    pallas_stem=fold["pallas_stem"]), bf16, w_bf16),
+                "bf16_cudnn": (lambda: quant.folded_resnet50_forward(fold["tree"], x, bf16),
+                               bf16, w_bf16)}
+            for kind, (fn, dtype, w_bytes) in runs.items():
+                b_ms, b_by = bound_ms(nbytes(x) + w_bytes + out_bytes, 2.0 * macs, dtype)
+                ms, host_ms = paced_ms(fn)
+                rows.append({"what": f"{name} {kind}", "batch": x.shape[0], "ms": ms,
+                             "host_ms": host_ms, "bound_ms": b_ms, "bound_by": b_by})
+    macs = int8_macs(lambda: pipe._yolo_int8(canvas))
+    q = pipe._quantized["__yolo__"]
+    n_out = sum(b.numel() + c.numel() for b, c in pipe._yolo_int8(canvas))
+    w_int8 = sum(nbytes(e["w"]) for e in q.values())
+    w_bf16 = sum(p.numel() * 2 for p in pipe.yolo.parameters())
+    for kind, fn, dtype, w_bytes, out_bytes in (
+            ("int8", lambda: pipe._yolo_int8(canvas), torch.int8, w_int8, 4 * n_out),
+            ("bf16", lambda: pipe.yolo(canvas), bf16, w_bf16, 2 * n_out)):
+        b_ms, b_by = bound_ms(nbytes(canvas) + w_bytes + out_bytes, 2.0 * macs, dtype)
+        ms, host_ms = paced_ms(fn)
+        rows.append({"what": f"detector {kind}", "batch": canvas.shape[0], "ms": ms,
+                     "host_ms": host_ms, "bound_ms": b_ms, "bound_by": b_by})
+    for r in rows:
+        log(f"  {r['what']} at batch {r['batch']}: ms {r['ms']:.4f} (the card's, CUDA "
+            f"events; host enqueue {r['host_ms']:.3f} ms)  bound_ms {r['bound_ms']:.5f} "
+            f"({r['bound_by']})")
+    x32 = torch.cat([towers["rgb_backbone"]] * 4)
+    q = pipe._quantized["rgb_backbone"]
+    ms = next(r["ms"] for r in rows
+              if r["what"] == "rgb_backbone int8" and r["batch"] == x32.shape[0])
+    profile_kernels(lambda: quant.int8_resnet50_forward(q, x32, bf16),
+                    f"the int8 rgb tower at batch {x32.shape[0]}", ms, top=8)
+    return rows
 
 
 def setup(rng, rng_new, device):
@@ -1096,6 +1313,26 @@ def setup(rng, rng_new, device):
             inputs[key] = paths[key][0].crop_stage(torch.from_numpy(frames[0]).to(device), K,
                                                    torch.from_numpy(depths[0]).to(device))["inputs"]
     return paths, requests, inputs, store
+
+
+def int8_pipeline(device):
+    """The JAX benchmark's rgbd_int8 pipeline (bench.py _build_pipeline and
+    bench_e2e): rgbd at 224, a bf16 YOLOv8n (the other paths' seeded
+    detector weights), conf_thresh 0, nms_pre_topk 32, compute bf16, with
+    seeded pose weights of its own; its towers folded with the stem and
+    layer1 kernels, which quantize_backbones then overrides."""
+    from pose6d_tpu_torch.convert import init_posenet_weights, init_yolo_weights
+    from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
+    from pose6d_tpu_torch.models.posenet import PoseNetConfig
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+
+    pose_cfg = PoseNetConfig(variant="rgbd")
+    cfg = PipelineConfig(variant="rgbd", img_size=224, compute_dtype=torch.bfloat16,
+                         conf_thresh=0.0, nms_pre_topk=32)
+    yolo_state = init_yolo_weights(YoloConfig(), SEED + 1)
+    pipe = PosePipeline(cfg, YoloConfig(dtype=torch.bfloat16), yolo_state,
+                        init_posenet_weights(pose_cfg, SEED + 6), pose_cfg, device=device)
+    return pipe.fold_backbones(pallas_stem=True, pallas_layer1=True)
 
 
 def main() -> int:
@@ -1191,17 +1428,28 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
+    # the int8 phase draws from a generator of its own too
+    rng_int8 = np.random.default_rng(SEED + 11)
+    outs["rgbd int8"], int8 = phase_int8(int8_pipeline("cuda"), rng_int8)
+    log(f"[phase 8 slice rgbd int8] int8 towers and detector, {N_REQUESTS} requests of "
+        f"{BATCH} frames {FRAME_W}x{FRAME_H} on {smi}: cosines vs bf16 "
+        + ", ".join(f"{k} {int8[k]['cos_vs_bf16']:.4f}"
+                    for k in ("rgb_backbone", "depth_backbone", "detector"))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    gens = {"rgbd": rng, "rgbd_geometric": rng, "rgbd int8": rng_int8}
     with torch.inference_mode():
         for title, out in outs.items():
             log(f"  {title}:")
-            n, batch = phase_add(out, rng if title in ("rgbd", "rgbd_geometric") else rng_new)
+            n, batch = phase_add(out, gens.get(title, rng_new))
             count({"pairwise_min_dist": n}, batch)
-    log(f"[phase 8 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
+    log(f"[phase 9 add] ADD/ADD-S through the addmin kernel ({time.perf_counter() - t0:.1f}s)")
 
     t0 = time.perf_counter()
     counts, train = phase_train(store, rng)
     count(counts, 32)
-    log(f"[phase 9 train rgbd] {TRAIN_STEPS} steps at batch 32, 224, f32 (TF32 off) on {smi}: "
+    log(f"[phase 10 train rgbd] {TRAIN_STEPS} steps at batch 32, 224, f32 (TF32 off) on {smi}: "
         f"smoke reading, not a throughput: {train['step_ms']:.3f} ms/step (CUDA events over "
         f"the epoch call; host enqueue {train['host_enqueue_ms']:.1f} ms), losses finite, "
         f"every parameter and BN statistic moved, gathers {counts['gather_rows_u32']} "
@@ -1214,7 +1462,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 10 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 11 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())

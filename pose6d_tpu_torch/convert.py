@@ -9,6 +9,10 @@ arrays) maps onto a state_dict by a transpose table:
   BatchNorm / LayerNorm scale, bias    -> weight, bias
   batch_stats mean, var                -> running_mean, running_var
 
+The int8 serving trees of the JAX package (PosePipeline.quantize_backbones)
+come across the same way (`quantized_resnet_from_jax`,
+`quantized_yolo_from_jax`): int8 HWIO codes -> OHWI.
+
 `init_posenet_weights` / `init_yolo_weights` make He-scaled weights from a
 numpy seed with every BatchNorm's scale, bias, mean and variance randomised
 (bn3 included), so BN folding and the residual branches are never trivial.
@@ -59,6 +63,35 @@ def posenet_from_jax(variables) -> dict:
 def yolo_from_jax(variables) -> dict:
     """A flax YoloV8 tree -> the port's YoloV8 state_dict."""
     return _flax_to_state_dict(variables)
+
+
+def _quantized_from_jax(q) -> dict:
+    conv = {}
+    for name, e in q.items():
+        w = np.asarray(e["w"])
+        if e.get("float"):
+            conv[name] = {"w": torch.from_numpy(w.astype(np.float32).transpose(3, 2, 0, 1).copy()),
+                          "b": torch.from_numpy(np.array(e["b"], np.float32)), "float": True}
+            continue
+        conv[name] = {"w": torch.from_numpy(w.astype(np.int8).transpose(3, 0, 1, 2).copy()),
+                      "s": torch.from_numpy(np.array(e["s"], np.float32)),
+                      "b": torch.from_numpy(np.array(e["b"], np.float32)),
+                      "a": torch.tensor(np.float32(e["a"]))}
+    return conv
+
+
+def quantized_resnet_from_jax(q) -> dict:
+    """A JAX int8 ResNet50 tree (ops/quant.py quantize_folded: {name: {"w":
+    HWIO int8 codes, "s", "b", "a"}}, as numpy) -> the port's
+    (ops.quant.quantize_folded: OHWI codes, tensors on the CPU)."""
+    return _quantized_from_jax(q)
+
+
+def quantized_yolo_from_jax(q) -> dict:
+    """A JAX int8 YOLOv8 tree (models/yolo/quant.py) -> the port's: the
+    ConvBN entries as quantized_resnet_from_jax's, the float head output
+    convs' HWIO kernels to OIHW."""
+    return _quantized_from_jax(q)
 
 
 def _random_state(module: torch.nn.Module, seed: int) -> dict:

@@ -8,9 +8,10 @@ detector's coarsest stride) -> top-1 decode, or top-k + class-aware NMS
 for max_objects > 1 -> boxes mapped back to the frame -> square crop at
 1.2x each box -> crop+resize as two matmuls (optionally on a per-sample
 window) -> ImageNet normalization -> PoseNet over the [B*M] crops (float
-towers, or BN-folded serving towers after fold_backbones, whose stem,
-layer1 and stages may run as CUDA kernels). Per variant, as in the
-reference's deployment scripts:
+towers, BN-folded serving towers after fold_backbones, whose stem, layer1
+and stages may run as CUDA kernels, or int8 towers and an int8 detector
+after quantize_backbones). Per variant, as in the reference's deployment
+scripts:
   - rgb, rgbd: with geometric_correction, X/Y re-derived from the
     predicted Z, the box centre and the original intrinsics;
   - rgb_geometric: the network takes the original-frame centre and K;
@@ -19,8 +20,11 @@ reference's deployment scripts:
   - rgbd_geometric: the depth map is cropped in f32 (its depth is metric)
     and the network takes the crop-frame centre, clipped to the crop, and
     the crop's intrinsics.
+A depth variant called without a depth map serves an all-zero one, as the
+JAX pipeline does: zero depth is invalid everywhere, so rgbd's depth tower
+sees 0 and rgbd_geometric's translation falls back to depth_fallback.
 
-Not ported: the int8 mode (quantize_backbones) and shard; see ROADMAP.md.
+Not ported: shard; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -38,11 +42,12 @@ from ..models.posenet import VARIANTS, PoseNet, PoseNetConfig
 from ..models.posenet_serving import serving_forward
 from ..models.yolo.decode import decode_topk_nms
 from ..models.yolo.model import YoloConfig, YoloV8
+from ..models.yolo.quant import quantize_yolo_from_variables, yolo_int8_model
 from ..ops.augment import eval_preprocess
 from ..ops.crop_resize import (crop_params_from_bbox, crop_resize_matmul,
                                crop_resize_matmul_windowed)
 from ..ops.fused_block import pack_layer1_weights, pack_stage_weights, pack_stem_weights
-from ..ops.quant import fold_bn_resnet
+from ..ops.quant import fold_bn_resnet, quantize_resnet_from_variables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +98,10 @@ class PosePipeline:
         self.yolo = self._load(YoloV8(yolo_cfg), yolo_state)
         self.posenet = self._load(PoseNet(self.pose_cfg), pose_state)
         self._folded: dict = {}
+        # int8 serving mode: {tower name: int8 tree, "__yolo__": the detector's}
+        self._quantized: dict = {}
+        self._yolo_int8 = None  # the int8 detector over _quantized["__yolo__"]
+        self._zero_depth = None  # cached all-zero depth map [B, H, W]
 
     def _load(self, module, state):
         module.load_state_dict(state, strict=True)
@@ -124,6 +133,59 @@ class PosePipeline:
             folded[name] = entry
         self._folded = folded
         return self
+
+    @torch.no_grad()
+    def quantize_backbones(self, calib_frames, calib_K, calib_depth=None,
+                           percentile: float | None = None,
+                           include_detector: bool = False):
+        """Enable the int8 serving mode: the float pipeline's crops of
+        representative frames (top-1 box, f32; calib_depth [B, H, W] metres,
+        or all-zero when None, normalized for every variant) calibrate each
+        tower's static activation scales (its abs max, or `percentile` of
+        |x|), and every ResNet50 tower goes to per-channel int8
+        (ops/quant.py); with include_detector the detector too, calibrated
+        on the canvas it takes (frames / 255 at native resolution, or the
+        letterbox). calib_K is taken as the JAX pipeline takes it, unused.
+        A tower also folded by fold_backbones runs int8. Returns self."""
+        frames = self._tensor(calib_frames)
+        depth = (torch.zeros(frames.shape[:3], device=self.device) if calib_depth is None
+                 else self._tensor(calib_depth, torch.float32))
+        crops, depth_norm = self._calib_crops(frames, depth)
+        q = {name: quantize_resnet_from_variables(getattr(self.posenet, name), [x], percentile)
+             for name, x in self.posenet.tower_inputs(crops, depth_norm).items()}
+        if include_detector:
+            canvas = self._letterbox(frames.float() / 255.0)[0]
+            q["__yolo__"] = quantize_yolo_from_variables(self.yolo, [canvas])
+        return self.load_quantized(q)
+
+    def load_quantized(self, quantized: dict):
+        """Serve int8 trees: {tower name: ops.quant.quantize_folded tree,
+        optionally "__yolo__": the detector's}, from quantize_backbones or
+        carried across from the JAX package's (convert.quantized_resnet_from_jax,
+        quantized_yolo_from_jax). Moves them to the pipeline's device and
+        builds the int8 detector once. Returns self."""
+        self._quantized = {
+            name: {conv: {k: v.to(self.device) if torch.is_tensor(v) else v
+                          for k, v in e.items()} for conv, e in tree.items()}
+            for name, tree in quantized.items()}
+        yolo_q = self._quantized.get("__yolo__")
+        self._yolo_int8 = (None if yolo_q is None else
+                           yolo_int8_model(yolo_q, self.yolo_cfg, self.cfg.compute_dtype))
+        return self
+
+    def _calib_crops(self, frames: torch.Tensor, depth_raw_full: torch.Tensor):
+        """The pipeline's crop stage for calibration, in f32: the RGB crops
+        after eval_preprocess and the normalized depth crops [B, S, S, 1] of
+        each frame's top-1 box, from the float detector."""
+        S = self.cfg.img_size
+        frames_norm = frames.float() / 255.0
+        bbox = self._detect_best(frames_norm)[0][:, 0]
+        cx1, cy1, csize = crop_params_from_bbox(bbox)
+        crops = eval_preprocess(crop_resize_matmul(frames_norm, cx1, cy1, csize, S,
+                                                   compute_dtype=torch.float32))
+        dcrop = crop_resize_matmul(depth_raw_full[..., None], cx1, cy1, csize, S,
+                                   compute_dtype=torch.float32)
+        return crops, normalize_depth(dcrop)
 
     # ------------------------------------------------------------------ core
 
@@ -159,11 +221,14 @@ class PosePipeline:
                                conf_thresh=cfg.conf_thresh,
                                fixpoint_iters=cfg.nms_fixpoint_iters)
 
-    def _detect_best(self, frames_norm: torch.Tensor):
-        """YOLO -> decode -> every detection mapped back to the original
-        frame, score-ordered, as xywh [B, D, 4], plus the decode dict."""
+    def _detect_best(self, frames_norm: torch.Tensor, yolo_int8=None):
+        """YOLO (the float detector, or the int8 one given) -> decode ->
+        every detection mapped back to the original frame, score-ordered,
+        as xywh [B, D, 4], plus the decode dict."""
         canvas, scale, pad_l, pad_t, det_hw = self._letterbox(frames_norm)
-        dets = self._decode(self.yolo(canvas.to(self.yolo_cfg.dtype)), det_hw)
+        outputs = (self.yolo(canvas.to(self.yolo_cfg.dtype)) if yolo_int8 is None
+                   else yolo_int8(canvas))
+        dets = self._decode(outputs, det_hw)
         b = dets["boxes"]  # [B, D, 4] xyxy in the canvas
         x1 = (b[..., 0] - pad_l) / scale
         y1 = (b[..., 1] - pad_t) / scale
@@ -190,7 +255,7 @@ class PosePipeline:
         S, M, cd = cfg.img_size, cfg.max_objects, cfg.compute_dtype
         B = frames.shape[0]
         frames_norm = frames.to(cd) / 255.0
-        all_bbox, dets = self._detect_best(frames_norm)
+        all_bbox, dets = self._detect_best(frames_norm, self._yolo_int8)
         bbox = all_bbox[:, :M].reshape(B * M, 4)
         K = self._per_object(camera_K)
         cx1, cy1, csize = crop_params_from_bbox(bbox)
@@ -234,9 +299,10 @@ class PosePipeline:
         cfg = self.cfg
         B, M = frames.shape[0], cfg.max_objects
         st = self.crop_stage(frames, camera_K, depth_raw_full)
-        if self._folded:
+        if self._folded or self._quantized:
             rot, trans = serving_forward(self.posenet, self.pose_cfg, **st["inputs"],
-                                         compute_dtype=cfg.compute_dtype, folded=self._folded)
+                                         compute_dtype=cfg.compute_dtype, folded=self._folded,
+                                         quantized=self._quantized)
         else:
             rot, trans = self.posenet(**st["inputs"])
         trans = trans.float()
@@ -268,14 +334,20 @@ class PosePipeline:
     @torch.inference_mode()
     def __call__(self, frames, camera_K, depth_raw_full=None) -> dict:
         """frames [B, H, W, 3] uint8; camera_K [B, 3, 3] or [3, 3];
-        depth_raw_full [B, H, W] metres (rgbd variants). Numpy arrays or
-        tensors; returns a dict of tensors on the pipeline's device."""
+        depth_raw_full [B, H, W] metres (rgbd variants; None serves an
+        all-zero map). Numpy arrays or tensors; returns a dict of tensors on
+        the pipeline's device."""
         frames = self._tensor(frames)
         camera_K = self._tensor(camera_K, torch.float32)
         if camera_K.ndim == 2:
             camera_K = camera_K.expand(frames.shape[0], 3, 3)
         if self.cfg.variant in ("rgbd", "rgbd_geometric"):
-            if depth_raw_full is None:
-                raise ValueError(f"variant {self.cfg.variant!r} needs depth_raw_full")
-            depth_raw_full = self._tensor(depth_raw_full, torch.float32)
+            depth_raw_full = (self._zero_depth_map(frames.shape[:3]) if depth_raw_full is None
+                              else self._tensor(depth_raw_full, torch.float32))
         return self._run(frames, camera_K, depth_raw_full)
+
+    def _zero_depth_map(self, shape) -> torch.Tensor:
+        """The all-zero f32 depth map of `shape` [B, H, W], cached per shape."""
+        if self._zero_depth is None or self._zero_depth.shape != shape:
+            self._zero_depth = torch.zeros(shape, device=self.device)
+        return self._zero_depth

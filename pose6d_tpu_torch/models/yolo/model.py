@@ -11,7 +11,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .modules import C2f, ConvBN, SPPF, conv_in, upsample2x
+from .modules import C2f, ConvBN, OutConv, SPPF, upsample2x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +85,14 @@ class DetectHead(nn.Module):
         c_box = max(16, in_channels[0] // 4, c.reg_max * 4)
         c_cls = max(in_channels[0], min(c.num_classes, 100))
         self.n_levels = len(in_channels)
-        self.dtype = dt = c.dtype
+        dt = c.dtype
         for i, ci in enumerate(in_channels):
             setattr(self, f"box{i}_0", ConvBN(ci, c_box, 3, dtype=dt))
             setattr(self, f"box{i}_1", ConvBN(c_box, c_box, 3, dtype=dt))
-            setattr(self, f"box{i}_out", nn.Conv2d(c_box, 4 * c.reg_max, 1))
+            setattr(self, f"box{i}_out", OutConv(c_box, 4 * c.reg_max, dt))
             setattr(self, f"cls{i}_0", ConvBN(ci, c_cls, 3, dtype=dt))
             setattr(self, f"cls{i}_1", ConvBN(c_cls, c_cls, 3, dtype=dt))
-            setattr(self, f"cls{i}_out", nn.Conv2d(c_cls, c.num_classes, 1))
+            setattr(self, f"cls{i}_out", OutConv(c_cls, c.num_classes, dt))
 
     def forward(self, feats):
         outs = []
@@ -102,7 +102,7 @@ class DetectHead(nn.Module):
                 y = x
                 for part in ("0", "1"):
                     y = getattr(self, f"{kind}{i}_{part}")(y)
-                branch[kind] = conv_in(getattr(self, f"{kind}{i}_out"), y, self.dtype)
+                branch[kind] = getattr(self, f"{kind}{i}_out")(y)
             outs.append((branch["box"], branch["cls"]))
         return outs
 

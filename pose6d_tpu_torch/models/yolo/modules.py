@@ -40,6 +40,17 @@ class ConvBN(nn.Module):
         return F.silu(y.to(self.dtype))
 
 
+class OutConv(nn.Conv2d):
+    """A head's 1x1 logit conv with a bias (no BN, no activation) in dtype."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 1)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return conv_in(self, x, self.dtype)
+
+
 class Bottleneck(nn.Module):
     """Two 3x3 ConvBNs with an optional residual (ultralytics `Bottleneck`)."""
 

@@ -22,7 +22,9 @@ never waits for the card (torch.cuda.set_sync_debug_mode("error")); the
 serving path's plain tensor code on the card against the CPU: the
 decode + NMS with ties planted in bf16 class logits (bit-equal classes,
 validity and scores, with no wait for the card), the windowed crop
-against the full-frame crop, and the 1280x720 letterbox.
+against the full-frame crop, the 1280x720 letterbox, and the int8
+convolution (conv_s8s32, torch._int_mm) bit-equal at the ResNet50 and
+YOLOv8n geometries at batches 8 and 32.
 Tolerances: f32 kernel vs plain max error <= 1e-4 * max(1, |plain|max)
 (different f32 summation order); bf16 kernel vs the f32 plain version
 within the bf16 envelope (mean error < 0.02 std, max < 0.25 std);
@@ -565,3 +567,40 @@ def test_letterbox_on_the_card_equals_cpu(cuda, dtype):
     err = (got[0].cpu().float() - want[0].float()).abs()
     tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8  # bf16 ulp of values in [0.5, 1)
     assert err.max().item() <= tol
+
+
+# (kernel, stride, padding, cin, cout, input H, W) of the int8 convolutions:
+# ResNet50's at 224 (conv1 of the RGB and depth towers, K 147 -> 152 and
+# 49 -> 56) and YOLOv8n's at 640x480 (the stem, K 27 -> 32)
+INT8_CONV_GEOMETRIES = {
+    "resnet_conv1_rgb": (7, 2, 3, 3, 64, 224, 224),
+    "resnet_conv1_depth": (7, 2, 3, 1, 64, 224, 224),
+    "resnet_layer1_conv2": (3, 1, 1, 64, 64, 56, 56),
+    "resnet_layer2_conv2_s2": (3, 2, 1, 128, 128, 56, 56),
+    "resnet_layer2_downsample": (1, 2, 0, 256, 512, 56, 56),
+    "resnet_layer4_conv1": (1, 1, 0, 1024, 512, 14, 14),
+    "resnet_layer4_conv3": (1, 1, 0, 512, 2048, 7, 7),
+    "yolo_stem": (3, 2, 1, 3, 16, 480, 640),
+    "yolo_down1": (3, 2, 1, 16, 32, 240, 320),
+    "yolo_c2f_1_bottleneck": (3, 1, 1, 16, 16, 120, 160),
+    "yolo_c2f_1_cv2": (1, 1, 0, 48, 32, 120, 160),
+    "yolo_sppf_cv2": (1, 1, 0, 512, 256, 15, 20),
+    "yolo_head_cls": (3, 1, 1, 64, 64, 60, 80),
+}
+
+
+@pytest.mark.parametrize("batch", [8, 32])
+@pytest.mark.parametrize("geometry", sorted(INT8_CONV_GEOMETRIES))
+def test_conv_s8s32_on_the_card_equals_cpu(cuda, geometry, batch):
+    """conv_s8s32 (im2col + torch._int_mm) on the card against the same
+    call on the CPU: the int32 outputs equal bit for bit at the towers' and
+    the detector's conv geometries, the zero-padded K included."""
+    from pose6d_tpu_torch.ops.quant import conv_s8s32
+
+    k, stride, pad, ci, co, h, w = INT8_CONV_GEOMETRIES[geometry]
+    g = torch.Generator().manual_seed(k * 1000 + ci)
+    x = torch.randint(-127, 128, (batch, h, w, ci), generator=g, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (co, k, k, ci), generator=g, dtype=torch.int8)
+    got = conv_s8s32(x.to(cuda), wt.to(cuda), stride, pad)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), conv_s8s32(x, wt, stride, pad))
