@@ -179,11 +179,15 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3, hold_cycles: int = HOLD_CYCLES) -> float:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, hold_cycles: int = HOLD_CYCLES,
+            held: list | None = None) -> float:
     """Median milliseconds of fn() over reps runs, each between CUDA events.
     Each run starts behind a hold_cycles spin on the stream, so that the
     host has enqueued fn's launches before the start event fires: the
-    events then time the card's work, not the wrapper's host overhead."""
+    events then time the card's work, not the wrapper's host overhead.
+    With `held`, appends per run whether the start event was still pending
+    when fn() returned on the host (a query, no wait): whether the spin
+    did outlast the enqueue."""
     for _ in range(warmup):
         fn()
     times = []
@@ -192,6 +196,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, hold_cycles: int = HOLD_CYCLES)
         torch.cuda._sleep(hold_cycles)
         start.record()
         fn()
+        if held is not None:
+            held.append(not start.query())
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -201,9 +207,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, hold_cycles: int = HOLD_CYCLES)
 def paced_ms(fn) -> tuple[float, float]:
     """(card ms, host ms) of a call that enqueues hundreds of launches: the
     host's time to enqueue fn() (median of 5, each after a sync), then
-    cuda_ms behind a spin that outlasts that enqueue (HOLD_CYCLES, ~2 ms,
+    cuda_ms behind a spin meant to outlast that enqueue (HOLD_CYCLES, ~2 ms,
     plus 1.5x the enqueue time), so that the events time the card's work
-    alone."""
+    alone. Every run checks that its start event was still pending when
+    fn() returned; if one was not, the spin ran out and the events timed
+    the host's pace, so the reading is taken again with a 4x longer spin,
+    and after three tries the phase fails."""
     fn()
     host = []
     for _ in range(5):
@@ -213,7 +222,16 @@ def paced_ms(fn) -> tuple[float, float]:
         host.append((time.perf_counter() - t0) * 1e3)
     host_ms = statistics.median(host)
     hold = HOLD_CYCLES + int(1.5 * host_ms * HOLD_CYCLES / 2)
-    return cuda_ms(fn, reps=10, warmup=1, hold_cycles=hold), host_ms
+    for _ in range(3):
+        held = []
+        ms = cuda_ms(fn, reps=10, warmup=1, hold_cycles=hold, held=held)
+        if all(held):
+            return ms, host_ms
+        log(f"  paced_ms: the spin of {hold} cycles ran out in {held.count(False)} of "
+            f"{len(held)} runs (host enqueue {host_ms:.3f} ms); again with a 4x longer spin")
+        hold *= 4
+    raise CheckFailed(f"paced_ms: a spin of {hold // 4} cycles still ran out before the "
+                      f"host had enqueued the call")
 
 
 def floor_ms() -> float:

@@ -10,8 +10,7 @@ arrays) maps onto a state_dict by a transpose table:
   batch_stats mean, var                -> running_mean, running_var
 
 The int8 serving trees of the JAX package (PosePipeline.quantize_backbones)
-come across the same way (`quantized_resnet_from_jax`,
-`quantized_yolo_from_jax`): int8 HWIO codes -> OHWI.
+come across the same way (`quantized_from_jax`): int8 HWIO codes -> OHWI.
 
 `init_posenet_weights` / `init_yolo_weights` make He-scaled weights from a
 numpy seed with every BatchNorm's scale, bias, mean and variance randomised
@@ -65,7 +64,12 @@ def yolo_from_jax(variables) -> dict:
     return _flax_to_state_dict(variables)
 
 
-def _quantized_from_jax(q) -> dict:
+def quantized_from_jax(q) -> dict:
+    """A JAX int8 tree, of a ResNet50 tower (ops/quant.py quantize_folded:
+    {name: {"w": HWIO int8 codes, "s", "b", "a"}}) or of the detector
+    (models/yolo/quant.py, whose head output convs are {"w": HWIO f32, "b",
+    "float": True}), as numpy -> the port's: OHWI codes, OIHW float
+    kernels, tensors on the CPU."""
     conv = {}
     for name, e in q.items():
         w = np.asarray(e["w"])
@@ -78,20 +82,6 @@ def _quantized_from_jax(q) -> dict:
                       "b": torch.from_numpy(np.array(e["b"], np.float32)),
                       "a": torch.tensor(np.float32(e["a"]))}
     return conv
-
-
-def quantized_resnet_from_jax(q) -> dict:
-    """A JAX int8 ResNet50 tree (ops/quant.py quantize_folded: {name: {"w":
-    HWIO int8 codes, "s", "b", "a"}}, as numpy) -> the port's
-    (ops.quant.quantize_folded: OHWI codes, tensors on the CPU)."""
-    return _quantized_from_jax(q)
-
-
-def quantized_yolo_from_jax(q) -> dict:
-    """A JAX int8 YOLOv8 tree (models/yolo/quant.py) -> the port's: the
-    ConvBN entries as quantized_resnet_from_jax's, the float head output
-    convs' HWIO kernels to OIHW."""
-    return _quantized_from_jax(q)
 
 
 def _random_state(module: torch.nn.Module, seed: int) -> dict:

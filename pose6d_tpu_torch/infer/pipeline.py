@@ -24,7 +24,8 @@ A depth variant called without a depth map serves an all-zero one, as the
 JAX pipeline does: zero depth is invalid everywhere, so rgbd's depth tower
 sees 0 and rgbd_geometric's translation falls back to depth_fallback.
 
-Not ported: shard; see ROADMAP.md.
+Not ported: shard, and quantize_backbones' percentile calibration (no
+caller of either package sets it); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -136,14 +137,12 @@ class PosePipeline:
 
     @torch.no_grad()
     def quantize_backbones(self, calib_frames, calib_K, calib_depth=None,
-                           percentile: float | None = None,
                            include_detector: bool = False):
         """Enable the int8 serving mode: the float pipeline's crops of
         representative frames (top-1 box, f32; calib_depth [B, H, W] metres,
         or all-zero when None, normalized for every variant) calibrate each
-        tower's static activation scales (its abs max, or `percentile` of
-        |x|), and every ResNet50 tower goes to per-channel int8
-        (ops/quant.py); with include_detector the detector too, calibrated
+        tower's static activation scales (abs max), and every ResNet50 tower
+        goes to per-channel int8 (ops/quant.py); with include_detector the detector too, calibrated
         on the canvas it takes (frames / 255 at native resolution, or the
         letterbox). calib_K is taken as the JAX pipeline takes it, unused.
         A tower also folded by fold_backbones runs int8. Returns self."""
@@ -151,7 +150,7 @@ class PosePipeline:
         depth = (torch.zeros(frames.shape[:3], device=self.device) if calib_depth is None
                  else self._tensor(calib_depth, torch.float32))
         crops, depth_norm = self._calib_crops(frames, depth)
-        q = {name: quantize_resnet_from_variables(getattr(self.posenet, name), [x], percentile)
+        q = {name: quantize_resnet_from_variables(getattr(self.posenet, name), [x])
              for name, x in self.posenet.tower_inputs(crops, depth_norm).items()}
         if include_detector:
             canvas = self._letterbox(frames.float() / 255.0)[0]
@@ -161,8 +160,8 @@ class PosePipeline:
     def load_quantized(self, quantized: dict):
         """Serve int8 trees: {tower name: ops.quant.quantize_folded tree,
         optionally "__yolo__": the detector's}, from quantize_backbones or
-        carried across from the JAX package's (convert.quantized_resnet_from_jax,
-        quantized_yolo_from_jax). Moves them to the pipeline's device and
+        carried across from the JAX package's (convert.quantized_from_jax).
+        Moves them to the pipeline's device and
         builds the int8 detector once. Returns self."""
         self._quantized = {
             name: {conv: {k: v.to(self.device) if torch.is_tensor(v) else v

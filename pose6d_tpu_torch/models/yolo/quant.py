@@ -118,13 +118,6 @@ def yolo_int8_model(q: Dict[str, dict], cfg: YoloConfig,
     return _rewired(cfg, convbn, lambda path: _float_out(q[path]))
 
 
-def yolo_int8_forward(q: Dict[str, dict], cfg: YoloConfig, x: torch.Tensor,
-                      compute_dtype=torch.float32):
-    """yolo_int8_model(q, cfg, compute_dtype)(x), building the model for
-    this one call (PosePipeline keeps the built one)."""
-    return yolo_int8_model(q, cfg, compute_dtype)(x)
-
-
 def calibrate_yolo(folded: Dict[str, dict], cfg: YoloConfig,
                    batches: Iterable) -> Dict[str, float]:
     """{path: input scale} of every ConvBN: its input's abs max over the f32

@@ -11,7 +11,7 @@ as the JAX package leaves it to XLA.
 The int8 mode is post-training quantization: per-output-channel symmetric
 int8 weights (`quantize_weights_per_channel`), one static activation scale
 per conv input from a calibration pass over the folded forward
-(`calibrate_act_scales`: the max, or a percentile, of |x|), and
+(`calibrate_act_scales`: the abs max of x), and
 `int8_resnet50_forward`, whose convolutions are s8 x s8 -> s32
 (`conv_s8s32`) with the requantize, ReLU and residual epilogues in
 compute_dtype, each cast and rounding where the JAX package has it. The
@@ -24,7 +24,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -235,39 +234,18 @@ def int8_resnet50_forward(q: Dict[str, dict], x: torch.Tensor,
     return xf.float().mean(dim=(1, 2)).to(cd)
 
 
-def percentile_linear(x: torch.Tensor, p: float) -> torch.Tensor:
-    """jnp.percentile(x, p) of all of x (its default linear interpolation,
-    in f32 as JAX computes it: the position p / 100 * (n - 1), its floor
-    and ceiling, and their weights, all f32) as an f32 0-dim tensor.
-    torch.quantile refuses inputs above 2^24 elements; the two order
-    statistics come from torch.kthvalue, with no limit."""
-    flat = x.reshape(-1).float()
-    n = flat.numel()
-    pos = np.float32(np.float32(p) / np.float32(100.0)) * (np.float32(n) - np.float32(1))
-    low, high = np.floor(pos), np.ceil(pos)
-    w_high = np.float32(pos - low)
-    w_low = np.float32(np.float32(1) - w_high)
-    lo = int(min(max(low, 0), n - 1))
-    hi = int(min(max(high, 0), n - 1))
-    v_lo = torch.kthvalue(flat, lo + 1).values
-    v_hi = v_lo if hi == lo else torch.kthvalue(flat, hi + 1).values
-    return v_lo * float(w_low) + v_hi * float(w_high)
-
-
-def observe_act_scales(run: Callable, batches: Iterable, device,
-                       percentile: float | None = None) -> Dict[str, float]:
+def observe_act_scales(run: Callable, batches: Iterable, device) -> Dict[str, float]:
     """Static activation scales: run(x, observer) is a folded forward over
     each calibration batch (as f32 on `device`) calling observer(name, h)
     with each conv's input; per conv, the largest abs max of its input
-    over the batches (or its `percentile` of |h|, percentile_linear) / 127,
+    over the batches / 127,
     as Python floats. Reads each statistic back to the host: calibration only."""
     maxes: Dict[str, float] = {}
     for xb in batches:
         vals = {}
 
         def observer(name, h):
-            h = h.abs()
-            vals[name] = h.amax() if percentile is None else percentile_linear(h, percentile)
+            vals[name] = h.abs().amax()
 
         run(torch.as_tensor(xb, dtype=torch.float32, device=device), observer)
         for name, v in vals.items():
@@ -275,20 +253,17 @@ def observe_act_scales(run: Callable, batches: Iterable, device,
     return {name: max(v, 1e-12) / 127.0 for name, v in maxes.items()}
 
 
-def calibrate_act_scales(folded: Dict[str, dict], batches: Iterable,
-                         percentile: float | None = None) -> Dict[str, float]:
+def calibrate_act_scales(folded: Dict[str, dict], batches: Iterable) -> Dict[str, float]:
     """{conv name: input scale} of a ResNet50 tower from the f32 folded
-    forward over `batches` (NHWC [B, H, W, C]): each conv input's abs max,
-    or with `percentile` that percentile of |x| (clipping outliers)."""
+    forward over `batches` (NHWC [B, H, W, C]): each conv input's abs max."""
     device = folded["conv1"]["w"].device
     return observe_act_scales(
         lambda x, observer: folded_resnet50_forward(folded, x, observer=observer),
-        batches, device, percentile)
+        batches, device)
 
 
-def quantize_resnet_from_variables(tower: ResNet50, calib_batches: Iterable,
-                                   percentile: float | None = None) -> Dict[str, dict]:
+def quantize_resnet_from_variables(tower: ResNet50, calib_batches: Iterable) -> Dict[str, dict]:
     """One-call PTQ of a ResNet50 tower (eval-mode BN folded) over
     calibration batches: the int8 tree for int8_resnet50_forward."""
     folded = fold_bn_resnet(tower)
-    return quantize_folded(folded, calibrate_act_scales(folded, calib_batches, percentile))
+    return quantize_folded(folded, calibrate_act_scales(folded, calib_batches))

@@ -12,7 +12,7 @@ without the detector. Tolerances: the trees' weight codes at most 1 apart
 folds differ in the last bit, 8e-8 measured) and their activation scales
 too (the two float crop stages and folded forwards round differently,
 rel 1.6e-6 measured); then the port serving JAX's own int8 trees (convert.
-quantized_resnet_from_jax / quantized_yolo_from_jax) within
+quantized_from_jax) within
 assert_pipeline_parity of JAX.
 """
 
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from pose6d_tpu_torch.convert import quantized_resnet_from_jax, quantized_yolo_from_jax
+from pose6d_tpu_torch.convert import quantized_from_jax
 
 from torch_port_utils import (PIPE_IMG as S, assert_pipeline_parity, make_pipeline_pair,
                               pipeline_request)
@@ -42,8 +42,7 @@ def _port_trees(jax_quantized):
     def one(name, tree):
         np_tree = {k: {f: (v if f == "float" else np.asarray(v)) for f, v in e.items()}
                    for k, e in tree.items()}
-        convert = quantized_yolo_from_jax if name == "__yolo__" else quantized_resnet_from_jax
-        return convert(np_tree)
+        return quantized_from_jax(np_tree)
     return {name: one(name, tree) for name, tree in jax_quantized.items()}
 
 

@@ -6,8 +6,7 @@ converted to the port (convert.posenet_from_jax's table). Tolerances:
 - weight codes and scales equal on the same folded tree (the same f32
   arithmetic, round half to even);
 - activation scales within rtol 1e-5 (the two folded forwards sum their
-  convolutions in different orders, rel 1.6e-6 measured), with and
-  without a percentile;
+  convolutions in different orders, rel 1.6e-6 measured);
 - the port's int8 forward on JAX's own int8 tree, in f32: rel-L2 <= 1e-3
   and cosine >= 0.99999 against JAX's (the int32 products are exact, and
   every epilogue rounds where JAX's does; 0 measured);
@@ -17,7 +16,6 @@ converted to the port (convert.posenet_from_jax's table). Tolerances:
 
 from unittest import mock
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +24,7 @@ from jax import lax
 
 from pose6d_tpu.models.resnet import ResNet50 as JResNet50
 from pose6d_tpu.ops import quant as jquant
-from pose6d_tpu_torch.convert import posenet_from_jax, quantized_resnet_from_jax
+from pose6d_tpu_torch.convert import posenet_from_jax, quantized_from_jax
 from pose6d_tpu_torch.models.resnet import ResNet50
 from pose6d_tpu_torch.ops import quant
 
@@ -78,18 +76,12 @@ def test_weight_codes_and_scales_match_jax(tower):
         np.testing.assert_array_equal(scale.numpy(), jscale, err_msg=name)
 
 
-@pytest.mark.parametrize("percentile", [None, 99.9])
-def test_act_scales_match_jax(tower, percentile):
-    """calibrate_act_scales on the port's own fold of the tower against
-    JAX's on its fold, within rtol 1e-5. JAX runs op by op: jitted, XLA
-    fuses jnp.percentile's f32 position arithmetic (p / 100 * (n - 1)) and
-    moves its interpolation weight (0.2324 for 0.2344 at p 99.9, n 32768),
-    while the op-by-op run computes the f32 formula that
-    quant.percentile_linear mirrors."""
+def test_act_scales_match_jax(tower):
+    """calibrate_act_scales (abs max) on the port's own fold of the tower
+    against JAX's on its fold, within rtol 1e-5."""
     _, jfold, model, x = tower
-    with jax.disable_jit():
-        want = jquant.calibrate_act_scales(jfold, [x], percentile=percentile)
-    got = quant.calibrate_act_scales(quant.fold_bn_resnet(model), [x], percentile=percentile)
+    want = jquant.calibrate_act_scales(jfold, [x])
+    got = quant.calibrate_act_scales(quant.fold_bn_resnet(model), [x])
     assert set(got) == set(want) and len(got) == 53
     for name in want:
         np.testing.assert_allclose(got[name], want[name], rtol=1e-5, atol=0, err_msg=name)
@@ -97,7 +89,7 @@ def test_act_scales_match_jax(tower, percentile):
 
 def test_int8_forward_matches_jax(tower, jax_int8):
     """The port's int8 forward in f32 on JAX's int8 tree (carried across by
-    convert.quantized_resnet_from_jax) against JAX's, with the activation
+    convert.quantized_from_jax) against JAX's, with the activation
     codes that reach each conv in the two counted where they differ
     (recorded by spying on each package's int8 convolution); and the
     port's own tree (its own fold and calibration) against JAX's codes:
@@ -121,7 +113,7 @@ def test_int8_forward_matches_jax(tower, jax_int8):
     with mock.patch.object(jquant.lax, "conv_general_dilated", jspy):
         want = np.asarray(jquant.int8_resnet50_forward(jq, jnp.asarray(x)))
     with mock.patch.object(quant, "conv_s8s32", tspy):
-        got = quant.int8_resnet50_forward(quantized_resnet_from_jax(_np_tree(jq)),
+        got = quant.int8_resnet50_forward(quantized_from_jax(_np_tree(jq)),
                                           torch.from_numpy(x)).numpy()
     assert len(jcodes) == len(tcodes) == 53
     flipped = sum(int((j != t).sum()) for j, t in zip(jcodes, tcodes))
@@ -159,27 +151,6 @@ def test_bf16_int8_forward_dtype_and_shape(tower):
     out = quant.int8_resnet50_forward(q, torch.from_numpy(x), torch.bfloat16)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (B, 2048)
     assert bool(torch.isfinite(out.float()).all())
-
-
-def test_percentile_linear():
-    """percentile_linear against jnp.percentile run op by op (its f32
-    formula), bit for bit, and against numpy.percentile above 2^24
-    elements, where torch.quantile refuses, within rtol 1e-5: numpy takes
-    the position in float64, JAX and the port in f32, whose ulp there is 1
-    to 2 ranks."""
-    rng = np.random.default_rng(0)
-    for n in (10, 1001, 32768, 100_003):
-        for p in (50.0, 99.9, 99.99, 37.3):
-            x = np.abs(rng.standard_normal(n)).astype(np.float32)
-            with jax.disable_jit():
-                want = np.float32(jnp.percentile(jnp.asarray(x), p))
-            assert np.float32(quant.percentile_linear(torch.from_numpy(x), p)) == want, (n, p)
-    x = torch.from_numpy(np.abs(rng.standard_normal((1 << 24) + 12345)).astype(np.float32))
-    with pytest.raises(RuntimeError):
-        torch.quantile(x, 0.999)
-    for p in (99.9, 99.99, 50.0):
-        np.testing.assert_allclose(float(quant.percentile_linear(x, p)),
-                                   np.percentile(x.numpy(), p), rtol=1e-5)
 
 
 def test_int32_to_bf16_matches_jax():

@@ -18,7 +18,7 @@ import torch
 
 from pose6d_tpu.models.yolo import quant as jyquant
 from pose6d_tpu.models.yolo.model import YoloConfig as JYoloConfig, YoloV8 as JYoloV8
-from pose6d_tpu_torch.convert import quantized_yolo_from_jax, yolo_from_jax
+from pose6d_tpu_torch.convert import quantized_from_jax, yolo_from_jax
 from pose6d_tpu_torch.models.yolo import quant as yquant
 from pose6d_tpu_torch.models.yolo.model import YoloConfig, YoloV8
 
@@ -85,21 +85,21 @@ def test_folded_forward_matches_jax(detector):
 
 def test_int8_forward_matches_jax(detector, jax_int8):
     """The port's int8 forward on JAX's int8 tree (convert.
-    quantized_yolo_from_jax) against JAX's, in f32: rel-L2 <= 1e-3 and
+    quantized_from_jax) against JAX's, in f32: rel-L2 <= 1e-3 and
     cosine >= 0.99999 over all six maps, each map's shape as JAX's; the
     logits stay f32 under a bf16 compute dtype."""
     jcfg, _, cfg, _, x = detector
-    q = quantized_yolo_from_jax({k: {f: (v if f == "float" else np.asarray(v))
-                                     for f, v in e.items()} for k, e in jax_int8.items()})
+    q = quantized_from_jax({k: {f: (v if f == "float" else np.asarray(v))
+                                for f, v in e.items()} for k, e in jax_int8.items()})
     want = jyquant.yolo_int8_forward(jax_int8, jcfg, jnp.asarray(x))
-    got = yquant.yolo_int8_forward(q, cfg, torch.from_numpy(x))
+    got = yquant.yolo_int8_model(q, cfg)(torch.from_numpy(x))
     for (gb, gc), (wb, wc) in zip(got, want):
         assert tuple(gb.shape) == wb.shape and tuple(gc.shape) == wc.shape
     g, w = _flat([(b.numpy(), c.numpy()) for b, c in got]), _flat(want)
     rel = np.linalg.norm(g - w) / np.linalg.norm(w)
     cos = g @ w / (np.linalg.norm(g) * np.linalg.norm(w))
     assert rel <= 1e-3 and cos >= 0.99999, (rel, cos)
-    bf16 = yquant.yolo_int8_forward(q, cfg, torch.from_numpy(x).bfloat16(), torch.bfloat16)
+    bf16 = yquant.yolo_int8_model(q, cfg, torch.bfloat16)(torch.from_numpy(x).bfloat16())
     assert all(b.dtype == c.dtype == torch.float32 for b, c in bf16)
 
 
@@ -128,7 +128,7 @@ def test_int8_forward_tracks_float(detector):
     xt = torch.from_numpy(x)
     with torch.no_grad():
         q = yquant.quantize_yolo_from_variables(model, [xt])
-        got, ref = yquant.yolo_int8_forward(q, cfg, xt), model(xt)
+        got, ref = yquant.yolo_int8_model(q, cfg)(xt), model(xt)
     for pair_g, pair_r in zip(got, ref):
         for g, r in zip(pair_g, pair_r):
             g, r = g.numpy().ravel(), r.numpy().ravel()
