@@ -35,7 +35,9 @@ Phases, each printed on its own line with its seconds:
      and 32 (the eval step's and the multi-object add's), 500 points,
      within 1e-7 m of float64 cdist, the plain version within its own
      envelope in d^2 (addmin.expansion_d2_atol), and bit-equal over two
-     launches and under a forced plan other than addmin_plan's. The stem, layer1, stage
+     launches and under a forced plan other than addmin_plan's, and with its
+     argmin output (the ADD-S loss's) the same distances and an index that
+     is a nearest GT point, the same under both plans. The stem, layer1, stage
      and addmin rows also carry the launch floor: floor_ms, the same event
      timing around one empty launch, and stream_ms, 50 launches back to
      back in one event pair over 50, of the kernel and of the empty launch;
@@ -99,11 +101,28 @@ Phases, each printed on its own line with its seconds:
      and depth per step) and 2 addmin launches in the eval step (learned
      and deployed translation); prints the step time (CUDA events over the
      4 steps) as a smoke reading;
- 11. kernels: one JSON line with every kernel's numbers; launches are the
+ 11. train rgbd from disk: the JAX training entry point ported,
+     get_preset("rgbd") -> Trainer -> fit(), at full width from a seeded
+     LineMOD tree it writes itself without cv2 or yaml (objects 01 and 10,
+     the eggbox, 160 frames each at 640x480, PNGs from its own encoder
+     with all five row filters, each decoded back bit-equal; gt.yml,
+     info.yml, ASCII PLY meshes, models_info.yml; generator SEED + 12):
+     the device path in f32 for 2 epochs (each epoch call under sync-debug
+     "error"; finite losses; every parameter and BN statistic moved;
+     gather and addmin launches 2 per step and 2 per val batch; metrics.csv;
+     last and best_deploy, and best exactly when val ADD-0.1d rose above
+     0), a second Trainer resuming from it bit for
+     bit and running exactly one more epoch, the host path (PNG decode and
+     crop on threads) for 1 epoch, and the device path in bf16 for 1 epoch
+     (finite; towers bf16 in training, f32 in validation); prints ms/step
+     (CUDA events), PNG decode ms per frame, the loader's ms per batch and
+     the epoch-timing split (phase_train_disk);
+ 12. kernels: one JSON line with every kernel's numbers; launches are the
      sums over the slice, add and train runs, on the row of the kernel and
      the batch they ran at (the stem and layer1 at 32 in phase 6, at 8
-     elsewhere; addmin at 8 in phase 9 and at 32 in phases 9 and 10); a
-     launch at a batch with no row fails the run. The int8 convolution is
+     elsewhere; addmin at 8 in phase 9 and at 32 in phases 9, 10 and 11; the
+     gather at 32 in phases 10 and 11); a launch at a batch with no row
+     fails the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
 
@@ -643,6 +662,16 @@ def addmin_row(pred, gt) -> dict:
           f"{what}: two launches differ")
     check(torch.equal(addmin.pairwise_min_dist_kernel(pred, gt, plan=other), got),
           f"{what}: plans {plan} and {other} differ")
+    # the argmin output of the ADD-S loss: the same distances, one index
+    # under both plans, and that index a nearest GT point (its float64
+    # distance the float64 minimum, to within f32 ties)
+    d_i, idx = addmin.pairwise_min_dist_kernel(pred, gt, return_index=True)
+    d_o, idx_o = addmin.pairwise_min_dist_kernel(pred, gt, plan=other, return_index=True)
+    check(torch.equal(d_i, got) and torch.equal(d_o, got) and torch.equal(idx, idx_o),
+          f"{what}: the index output changed the distances or differs between plans")
+    at_idx = (pred.double() - torch.gather(gt, 1, idx[..., None].expand(-1, -1, 3)).double())
+    err_idx = (at_idx.norm(dim=-1) - exact).abs().max().item()
+    check(err_idx <= 1e-7, f"{what}: the argmin is {err_idx:.3g} m from the nearest point")
     sync(pred.device)
     b_ms, b_by = bound_ms(nbytes(pred, gt, got), 9.0 * B * P * P, torch.float32)
     log(f"  addmin [{B}, {P}, 3] plan {plan}: {plan.blocks(B, P)} blocks x {plan.threads} "
@@ -1088,6 +1117,383 @@ def phase_train(store, rng):
                     "losses": losses.tolist(), "addmin_max_abs_err": addmin_err}
 
 
+# ------------------------------------------------------- train rgbd from disk
+
+# LineMOD folder -> (cube half-extent in mm, mesh vertices); 10 is the eggbox (ADD-S)
+DISK_OBJECTS = {1: (40.0, 800), 10: (55.0, 700)}
+DISK_FRAMES = 160    # frames per object folder: 128 train, 16 val, 16 test
+METRICS_HEADER = ["epoch", "train_loss", "val_add", "val_add_s", "val_acc", "val_acc_deploy",
+                  "lr", "steps_per_sec", "imgs_per_sec"]  # the JAX Trainer's metrics.csv
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A PNG of an [H, W, 3] uint8 (8-bit RGB) or [H, W] uint16 (16-bit grey,
+    big-endian) image; row y uses filter type y % 5, so every one of the
+    five filters occurs; zlib level 1."""
+    import zlib
+
+    h, w = img.shape[:2]
+    if img.dtype == np.uint8:
+        color, depth, bpp = 2, 8, 3
+        rows = img.reshape(h, w * 3).astype(np.int16)
+    else:
+        color, depth, bpp = 0, 16, 2
+        rows = img.astype(">u2").view(np.uint8).reshape(h, w * 2).astype(np.int16)
+    left = np.zeros_like(rows)
+    left[:, bpp:] = rows[:, :-bpp]
+    up = np.zeros_like(rows)
+    up[1:] = rows[:-1]
+    upleft = np.zeros_like(rows)
+    upleft[1:, bpp:] = rows[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    filtered = np.stack([rows, rows - left, rows - up, rows - ((left + up) >> 1), rows - paeth])
+    ftype = np.arange(h) % 5
+    data = np.concatenate([ftype[:, None], filtered[ftype, np.arange(h)] & 0xFF], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + kind + body
+                + zlib.crc32(body, zlib.crc32(kind)).to_bytes(4, "big"))
+
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([depth, color, 0, 0, 0])
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(data.astype(np.uint8).tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def seeded_frame(rng, bbox, z_mm: float, color):
+    """A smooth seeded RGB frame (32 px blocks plus a gradient) with the
+    object's box filled in its colour, and uint16 depth in mm inside the
+    box (a plane around z_mm), 0 outside."""
+    coarse = rng.integers(30, 200, (FRAME_H // 32 + 1, FRAME_W // 32 + 1, 3))
+    img = np.repeat(np.repeat(coarse, 32, 0), 32, 1)[:FRAME_H, :FRAME_W]
+    img = img + (np.arange(FRAME_W)[None, :, None] // 40)
+    x, y, w, h = bbox
+    img[y:y + h, x:x + w] = np.asarray(color) + rng.integers(0, 24, (h, w, 3))
+    depth = np.zeros((FRAME_H, FRAME_W), np.uint16)
+    tilt = rng.uniform(-0.3, 0.3, 2)
+    yy, xx = np.mgrid[0:h, 0:w]
+    depth[y:y + h, x:x + w] = (z_mm + tilt[0] * (xx - w / 2) + tilt[1] * (yy - h / 2)).astype(np.uint16)
+    return np.clip(img, 0, 255).astype(np.uint8), depth
+
+
+def write_linemod_tree(root: str, rng) -> dict:
+    """A seeded LineMOD tree under root, written without cv2 or yaml:
+    data/<01, 10>/{rgb,depth}/NNNN.png (DISK_FRAMES 640x480 frames each,
+    encode_png), gt.yml and info.yml in LineMOD's flow-list form, and
+    models/obj_NN.ply (ASCII, over 500 vertices in the object's cube) with
+    models_info.yml. Every PNG written is read back by data/png.py and must
+    equal its array bit for bit; returns the decode times (ms per frame)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pose6d_tpu_torch.data.png import read_png
+
+    data, models = os.path.join(root, "data"), os.path.join(root, "models")
+    os.makedirs(models, exist_ok=True)
+    info_lines, written = [], []
+    for obj, (half, n_pts) in DISK_OBJECTS.items():
+        pts = rng.uniform(-half, half, (n_pts, 3))
+        with open(os.path.join(models, f"obj_{obj:02d}.ply"), "w") as f:
+            f.write(f"ply\nformat ascii 1.0\nelement vertex {len(pts)}\nproperty float x\n"
+                    f"property float y\nproperty float z\nend_header\n")
+            f.writelines(f"{a:.6f} {b:.6f} {c:.6f}\n" for a, b, c in pts)
+        info_lines.append(f"{obj}: {{diameter: {2 * half * np.sqrt(3):.6f}, "
+                          f"min_x: {-half}, size_x: {2 * half}}}\n")
+        base = os.path.join(data, f"{obj:02d}")
+        for sub in ("rgb", "depth"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        color = rng.integers(60, 230, 3)
+        gt, info = [], []
+        for frame in range(DISK_FRAMES):
+            wh = rng.integers(60, 200, 2)
+            xy = (rng.uniform(0, 1, 2) * (np.array([FRAME_W, FRAME_H]) - wh)).astype(int)
+            bbox = [int(xy[0]), int(xy[1]), int(wh[0]), int(wh[1])]
+            q = rng.normal(size=4)
+            x, y, z, w = q / np.linalg.norm(q)
+            rot = [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+                   2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                   2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]
+            t = [rng.uniform(-100, 100), rng.uniform(-100, 100), rng.uniform(600, 1000)]
+            rgb, depth = seeded_frame(rng, bbox, t[2], color)
+            name = f"{frame:04d}.png"
+            written += [(os.path.join(base, "rgb", name), rgb),
+                        (os.path.join(base, "depth", name), depth)]
+            gt.append(f"{frame}:\n- cam_R_m2c: {[float(v) for v in rot]}\n"
+                      f"  cam_t_m2c: {[float(v) for v in t]}\n  obj_bb: {bbox}\n"
+                      f"  obj_id: {obj}\n")
+            info.append(f"{frame}:\n  cam_K: {[float(v) for v in LINEMOD_K.ravel()]}\n"
+                        f"  depth_scale: 1.0\n")
+        with open(os.path.join(base, "gt.yml"), "w") as f:
+            f.writelines(gt)
+        with open(os.path.join(base, "info.yml"), "w") as f:
+            f.writelines(info)
+    with open(os.path.join(models, "models_info.yml"), "w") as f:
+        f.writelines(info_lines)
+
+    def write(item):
+        with open(item[0], "wb") as f:
+            f.write(encode_png(item[1]))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, written))
+    times = {"rgb": [], "depth": []}
+    for path, arr in written:
+        t0 = time.perf_counter()
+        got = read_png(path)
+        times["rgb" if arr.ndim == 3 else "depth"].append((time.perf_counter() - t0) * 1e3)
+        check(got.dtype == arr.dtype and np.array_equal(got, arr),
+              f"{path} does not decode to the array written")
+    return {"data": data, "models": models, "frames": len(written) // 2,
+            "decode_ms": {k: statistics.median(v) for k, v in times.items()}}
+
+
+class EpochProbe:
+    """Wraps a Trainer's train_epoch_fn: each call runs under
+    torch.cuda.set_sync_debug_mode("error") (any wait for the card raises)
+    between two CUDA events; keeps the calls' (ms, steps, losses)."""
+
+    def __init__(self, trainer):
+        self.fn, self.calls = trainer.train_epoch_fn, []
+        trainer.train_epoch_fn = self
+
+    def __call__(self, state, frames, depth, meta, gen):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, losses = self.fn(state, frames, depth, meta, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        end.record()
+        self.calls.append((start, end, int(meta["idx"].shape[0]), losses))
+        return state, losses
+
+    def ms_per_step(self) -> float:
+        for _, end, _, _ in self.calls:
+            end.synchronize()
+        return (sum(s.elapsed_time(e) for s, e, _, _ in self.calls)
+                / sum(n for _, _, n, _ in self.calls))
+
+
+def csv_rows(save_dir: str) -> list:
+    import csv
+
+    with open(os.path.join(save_dir, "metrics.csv"), newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        check(header == METRICS_HEADER, f"metrics.csv header {header}")
+        return [dict(zip(header, r)) for r in reader]
+
+
+def tower_dtypes(model, seen: list):
+    """Record (train mode, dtype) of every rgb tower conv1 output."""
+    return model.rgb_backbone.conv1.register_forward_hook(
+        lambda m, i, o: seen.append((m.training, o.dtype)))
+
+
+def phase_train_disk(rng, smi: str):
+    """The JAX training entry point ported: get_preset("rgbd") -> Trainer
+    -> fit() at full width (two ResNet50 towers at 224, attention dim 2048,
+    batch 32) from a seeded LineMOD tree on disk (write_linemod_tree):
+      A. the device path (device_preprocess=True), f32, 2 epochs: each epoch
+         call under sync-debug "error"; finite losses; every parameter and
+         BN statistic moved; gather launches 2 x steps x epochs and addmin
+         launches 2 x val batches x epochs, and nothing else; metrics.csv
+         with the JAX header and 2 rows; last and best_deploy written, best
+         written exactly when some epoch's val ADD-0.1d rose above 0 (the
+         reference's strict-improvement rule). A second Trainer on the same
+         save dir resumes at epoch 2 with best_acc, the scheduler, the
+         model and the optimizer state equal bit for bit, and fit(epochs=3)
+         runs exactly one epoch;
+      B. the host path (scripts/train.py's default), f32, 1 epoch: finite
+         loss; the loader's decode + crop ms per batch of 32, alone;
+      C. the device path in bf16, 1 epoch: finite losses; the towers ran
+         bf16 in training and f32 in validation.
+    Returns the launch counts of A, its resume and B and C, and the readings."""
+    import shutil
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.configs.presets import get_preset
+    from pose6d_tpu_torch.data.pipeline import LineMODPoseLoader
+    from pose6d_tpu_torch.train.trainer import Trainer
+
+    root = os.path.join(_build.BUILD_DIR, "smoke_linemod")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = write_linemod_tree(root, rng)
+    log(f"  seeded LineMOD tree: {tree['frames']} frames of {FRAME_W}x{FRAME_H} in folders "
+        f"{sorted(DISK_OBJECTS)}, every PNG (filters 0-4) decodes bit-equal; decode "
+        f"{tree['decode_ms']['rgb']:.3f} ms per RGB frame, {tree['decode_ms']['depth']:.3f} "
+        f"ms per depth frame (median, one thread) on the host of {smi} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    totals, out = collections.Counter(), {"decode_ms": tree["decode_ms"]}
+    data, models = tree["data"], tree["models"]
+    try:
+        # ---- A: device path, f32, 2 epochs, then resume
+        t0 = time.perf_counter()
+        save_a = os.path.join(root, "save_a")
+        cfg = get_preset("rgbd", epochs=2)
+        check((cfg.img_size, cfg.batch_size, cfg.compute_dtype) == (224, 32, "float32"),
+              f"the rgbd preset moved: {cfg}")
+        tr = Trainer(cfg, data, models, save_a, seed=SEED, device_preprocess=True,
+                     device="cuda")
+        n_train, n_val = len(tr.train_loader), len(tr.val_loader)
+        steps = n_train // cfg.batch_size
+        val_batches = -(-n_val // cfg.batch_size)
+        probe = EpochProbe(tr)
+        before = {k: v.clone() for k, v in tr.state.model.state_dict().items()}
+        _build.launch_counts.clear()
+        tr.fit()
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        totals.update(counts)
+        want = {"gather_rows_u32": 2 * steps * cfg.epochs,
+                "pairwise_min_dist": 2 * val_batches * cfg.epochs}
+        check(counts == want, f"run A launched {counts}, expected {want}")
+        losses = torch.cat([c[3] for c in probe.calls]).cpu()
+        check(len(probe.calls) == cfg.epochs and len(losses) == steps * cfg.epochs
+              and bool(torch.isfinite(losses).all()), f"run A losses {losses.tolist()}")
+        after = tr.state.model.state_dict()
+        moved = {k for k, _ in tr.state.model.named_parameters()} | {
+            k for k in after if "running_" in k}
+        stuck = [k for k in moved if torch.equal(before[k], after[k])]
+        check(not stuck, f"{len(stuck)} parameters or BN statistics did not move, e.g. {stuck[:3]}")
+        del before
+        rows = csv_rows(save_a)
+        check(len(rows) == cfg.epochs and all(np.isfinite(float(r["train_loss"])) for r in rows),
+              f"metrics.csv rows {rows}")
+        accs = [float(r["val_acc"]) for r in rows]
+        check(tr.ckpt.has_checkpoint("last") and tr.ckpt.has_checkpoint("best_deploy"),
+              "last or best_deploy missing")
+        check(tr.ckpt.has_checkpoint("best") == (max(accs) > 0.0),
+              f"best written {tr.ckpt.has_checkpoint('best')} with val ADD-0.1d {accs}")
+        out["a_ms_step"] = probe.ms_per_step()
+        out["epoch_timing"] = dict(tr.epoch_timing)
+        log(f"  A: device path f32, {cfg.epochs} epochs of {steps} steps (batch 32, "
+            f"{n_train} train / {n_val} val samples): {out['a_ms_step']:.3f} ms/step (CUDA "
+            f"events over the epoch calls, sync-debug 'error'), losses "
+            f"{[round(x, 4) for x in losses.tolist()]}, val ADD-0.1d {accs} (best "
+            f"{'written' if max(accs) > 0 else 'not written: no epoch rose above 0'}), "
+            f"launches {counts}; last epoch [epoch-timing] meta "
+            f"{out['epoch_timing']['meta_s']:.3f}s | dispatch "
+            f"{out['epoch_timing']['dispatch_s']:.3f}s | exec+fetch "
+            f"{out['epoch_timing']['exec_fetch_s']:.3f}s ({time.perf_counter() - t0:.1f}s)")
+
+        t0 = time.perf_counter()
+        sd_a = {k: v.clone() for k, v in tr.state.model.state_dict().items()}
+        opt_a = tr.state.tx.state_dict()
+        best_a, sched_a, step_a = tr.best_acc, tr.scheduler.state_dict(), tr.state.step
+        tr.close()
+        del tr, probe
+        tr2 = Trainer(cfg, data, models, save_a, seed=SEED, device_preprocess=True,
+                      device="cuda")
+        check(tr2.try_resume() and tr2.start_epoch == cfg.epochs,
+              f"resume: start_epoch {tr2.start_epoch}")
+        check(tr2.best_acc == best_a and tr2.scheduler.state_dict() == sched_a
+              and tr2.state.step == step_a, "resume: best_acc, scheduler or step differ")
+        sd_b = tr2.state.model.state_dict()
+        check(set(sd_b) == set(sd_a) and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a),
+              "resume: the model differs from the first trainer's")
+        opt_b = tr2.state.tx.state_dict()
+        same_opt = (opt_a["param_groups"] == opt_b["param_groups"]
+                    and opt_a["state"].keys() == opt_b["state"].keys()
+                    and all(opt_a["state"][i][k].device == opt_b["state"][i][k].device
+                            and torch.equal(opt_a["state"][i][k], opt_b["state"][i][k])
+                            for i in opt_a["state"] for k in opt_a["state"][i]))
+        check(same_opt, "resume: the optimizer state (values or devices) differs from the "
+                        "first trainer's")
+        del sd_a, sd_b, opt_a, opt_b
+        probe = EpochProbe(tr2)
+        _build.launch_counts.clear()
+        tr2.fit(epochs=cfg.epochs + 1)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        totals.update(counts)
+        check(len(probe.calls) == 1 and len(csv_rows(save_a)) == cfg.epochs + 1,
+              f"fit(epochs={cfg.epochs + 1}) after resume ran {len(probe.calls)} epochs")
+        check(counts == {"gather_rows_u32": 2 * steps, "pairwise_min_dist": 2 * val_batches},
+              f"the resumed epoch launched {counts}")
+        tr2.close()
+        del tr2, probe
+        shutil.rmtree(save_a, ignore_errors=True)
+        log(f"  A resume: start_epoch {cfg.epochs}, best_acc, scheduler, model and optimizer "
+            f"state bit-equal; fit(epochs={cfg.epochs + 1}) ran one epoch, launches {counts} "
+            f"({time.perf_counter() - t0:.1f}s)")
+
+        # ---- B: host path, f32, 1 epoch
+        t0 = time.perf_counter()
+        loader = LineMODPoseLoader(data, mode="train", flavor="rgbd", img_size=224,
+                                   compact_arrays=True)
+        t1 = time.perf_counter()
+        n_b = sum(1 for _ in loader.batches(32, np.random.default_rng(SEED)))
+        out["loader_ms_batch"] = (time.perf_counter() - t1) * 1e3 / n_b
+        loader.close()
+        save_b = os.path.join(root, "save_b")
+        tr = Trainer(get_preset("rgbd", epochs=1), data, models, save_b, seed=SEED,
+                     device="cuda")
+        _build.launch_counts.clear()
+        tr.fit()
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        totals.update(counts)
+        rows = csv_rows(save_b)
+        check(len(rows) == 1 and np.isfinite(float(rows[0]["train_loss"])), f"run B {rows}")
+        check(counts == {"pairwise_min_dist": 2 * val_batches}, f"run B launched {counts}")
+        out["b_ms_step"] = 1e3 / float(rows[0]["steps_per_sec"])
+        tr.close()
+        del tr
+        shutil.rmtree(save_b, ignore_errors=True)
+        log(f"  B: host path f32, 1 epoch: loss {float(rows[0]['train_loss']):.4f}; the "
+            f"loader alone (8 threads) {out['loader_ms_batch']:.1f} ms per batch of 32 "
+            f"(PNG decode + crop of RGB and depth), the epoch {out['b_ms_step']:.1f} ms/step "
+            f"(host clock, loader and step overlapped); launches {counts} "
+            f"({time.perf_counter() - t0:.1f}s)")
+
+        # ---- C: device path, bf16, 1 epoch
+        t0 = time.perf_counter()
+        save_c = os.path.join(root, "save_c")
+        cfg_c = get_preset("rgbd", epochs=1, compute_dtype="bfloat16")
+        tr = Trainer(cfg_c, data, models, save_c, seed=SEED, device_preprocess=True,
+                     device="cuda")
+        probe = EpochProbe(tr)
+        seen = []
+        hook = tower_dtypes(tr.state.model, seen)
+        _build.launch_counts.clear()
+        tr.fit()
+        torch.cuda.synchronize()
+        hook.remove()
+        counts = dict(_build.launch_counts)
+        totals.update(counts)
+        losses = torch.cat([c[3] for c in probe.calls]).cpu()
+        check(len(losses) == steps and bool(torch.isfinite(losses).all()),
+              f"run C losses {losses.tolist()}")
+        check({d for t, d in seen if t} == {torch.bfloat16}
+              and {d for t, d in seen if not t} == {torch.float32},
+              f"run C tower dtypes (train mode, dtype): {sorted(set(seen), key=str)}")
+        check(all(p.dtype == torch.float32 for p in tr.state.model.parameters()),
+              "run C: parameters left f32")
+        check(counts == {"gather_rows_u32": 2 * steps, "pairwise_min_dist": 2 * val_batches},
+              f"run C launched {counts}")
+        out["c_ms_step"] = probe.ms_per_step()
+        # one more bf16 step under the profiler: the card's kernel time
+        # against the step's time says whether the host paces it
+        fs = tr.frame_store
+        meta, _ = fs.epoch_meta(cfg_c.batch_size, np.random.default_rng(SEED))
+        one = {k: v[:1] for k, v in meta.items()}
+        profile_kernels(lambda: probe.fn(tr.state, fs.rgb_frames, fs.depth_frames, one,
+                                         tr._generator(cfg_c.epochs)),
+                        "one bf16 step", out["c_ms_step"])
+        tr.close()
+        del tr, probe
+        log(f"  C: device path bf16, 1 epoch: {out['c_ms_step']:.3f} ms/step (CUDA events), "
+            f"losses {[round(x, 4) for x in losses.tolist()]}; towers bf16 in training, f32 "
+            f"in validation; launches {counts} ({time.perf_counter() - t0:.1f}s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return totals, out
+
+
 def profile_kernels(fn, what: str, unprofiled_ms: float, top: int = 10) -> None:
     """fn() once more under torch.profiler: the card's kernel time by
     kernel, its sum, and that sum over fn's unprofiled time (the busy
@@ -1474,17 +1880,31 @@ def main() -> int:
         f"(8 epoch + 2 eval batch), addmin {counts['pairwise_min_dist']} "
         f"({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    # the train-from-disk phase draws from a generator of its own
+    counts, disk = phase_train_disk(np.random.default_rng(SEED + 12), smi)
+    count(dict(counts), 32)
+    log(f"[phase 11 train rgbd from disk] Trainer(get_preset('rgbd')) on a seeded LineMOD "
+        f"tree, 224, batch 32, on {smi}: device path f32 {disk['a_ms_step']:.3f} ms/step, "
+        f"bf16 {disk['c_ms_step']:.3f} ms/step (CUDA events over the epoch calls), host "
+        f"path {disk['b_ms_step']:.1f} ms/step (host clock); PNG decode "
+        f"{disk['decode_ms']['rgb']:.3f} / {disk['decode_ms']['depth']:.3f} ms per RGB / "
+        f"depth frame, host loader {disk['loader_ms_batch']:.1f} ms per batch of 32; "
+        f"resume exact; gathers {counts['gather_rows_u32']}, addmin "
+        f"{counts['pairwise_min_dist']} ({time.perf_counter() - t0:.1f}s)")
+
     # the b32 addmin row: phase 3's inputs and the eval step's
     r = by_id[("pairwise_min_dist", 32)]
     r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 11 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 12 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())
-        + f"; train rgbd {train['step_ms']:.3f} ms/step"
+        + f"; train rgbd {train['step_ms']:.3f} ms/step, from disk {disk['a_ms_step']:.3f} "
+          f"(f32) / {disk['c_ms_step']:.3f} (bf16) ms/step"
         + f" ({time.perf_counter() - t_all:.1f}s total)")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                  **{k: r[k] for k in extra if k in r},

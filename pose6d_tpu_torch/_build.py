@@ -59,8 +59,9 @@ _SIGNATURES = {
     # a1, w1, a2, w2, bias, bias2, res, out, ws, tickets, M, N, K1, K2, h, w,
     # ho, wo, stride, conv3x3, tile N, splits, stream
     "pose6d_gemm_bf16": [_P] * 10 + [_I] * 12 + [_P],
-    # pred, gt, out, B, P, tile, R, splits (the plan), stream
-    "pose6d_addmin_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pred, gt, out, idx (argmin output or null), B, P, tile, R, splits (the
+    # plan), stream
+    "pose6d_addmin_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # src, idx, out, N, B, R (32-bit words per row), blocks (grid), stream
     "pose6d_gather_rows_u32": [_P, _P, _P, _I, _I, _I, _I, _P],
 }

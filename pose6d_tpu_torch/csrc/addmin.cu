@@ -1,6 +1,10 @@
 // ADD-S nearest-point distance: for each of P predicted model points, the
 // Euclidean distance to the nearest of the P ground-truth points, per
-// sample. pred, gt [B, P, 3] f32 (centred by the caller) -> out [B, P] f32.
+// sample. pred, gt [B, P, 3] f32 (centred by the caller) -> out [B, P] f32,
+// and, where the caller passes an `idx` buffer, the index of that nearest
+// GT point [B, P] int32 (the merged argmin below; the differentiable ADD-S
+// loss's backward reads it, losses/add.py). The distances are the same bits
+// with or without it.
 //
 // Replaces: pose6d_tpu/ops/pallas_addmin.py pairwise_min_dist_pallas /
 // _addmin_kernel, which formed the [P, P] matrix on the TPU's matrix unit
@@ -73,7 +77,8 @@ __device__ __forceinline__ bool before(float b2, int a2, float b, int a) {
 
 template <int R>
 __global__ void addmin_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
-                              float* __restrict__ out, int P, int tile, int splits) {
+                              float* __restrict__ out, int* __restrict__ idx, int P, int tile,
+                              int splits) {
   extern __shared__ float4 smem[];
   const int stage_n = min(P, CHUNK);
   float4* s_gt = smem;                                        // [stage_n]
@@ -145,17 +150,19 @@ __global__ void addmin_kernel(const float* __restrict__ pred, const float* __res
     const double dy = (double)pb[3 * i + 1] - gb[3 * aa + 1];
     const double dz = (double)pb[3 * i + 2] - gb[3 * aa + 2];
     out[(size_t)b * P + i] = (float)sqrt(__fma_rn(dz, dz, __fma_rn(dy, dy, __dmul_rn(dx, dx))));
+    if (idx != nullptr) idx[(size_t)b * P + i] = aa;
   }
 }
 
 template <int R>
-cudaError_t launch(const float* pred, const float* gt, float* out, int B, int P, int tile,
-                   int splits, cudaStream_t stream) {
+cudaError_t launch(const float* pred, const float* gt, float* out, int* idx, int B, int P,
+                   int tile, int splits, cudaStream_t stream) {
   const int threads = splits * (tile / R);
   const size_t smem = (size_t)min(P, CHUNK) * sizeof(float4) + (size_t)splits * tile * 8;
   const long long blocks = (long long)B * ((P + tile - 1) / tile);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  addmin_kernel<R><<<(unsigned)blocks, threads, smem, stream>>>(pred, gt, out, P, tile, splits);
+  addmin_kernel<R><<<(unsigned)blocks, threads, smem, stream>>>(pred, gt, out, idx, P, tile,
+                                                                 splits);
   return cudaGetLastError();
 }
 
@@ -163,19 +170,21 @@ cudaError_t launch(const float* pred, const float* gt, float* out, int B, int P,
 
 // The plan (tile, R, splits): R in {1, 2, 4}, tile a multiple of R, and at
 // most MAX_THREADS threads (splits * tile / R); anything else is refused.
-extern "C" int pose6d_addmin_forward(const void* pred, const void* gt, void* out, int B, int P,
-                                     int tile, int R, int splits, void* stream) {
+// idx may be null (no index output).
+extern "C" int pose6d_addmin_forward(const void* pred, const void* gt, void* out, void* idx, int B,
+                                     int P, int tile, int R, int splits, void* stream) {
   if (B < 1 || P < 1 || tile < R || R < 1 || tile % R != 0 || splits < 1 ||
       (long long)splits * (tile / R) > MAX_THREADS)
     return (int)cudaErrorInvalidValue;
   const auto* p = (const float*)pred;
   const auto* q = (const float*)gt;
   auto* o = (float*)out;
+  auto* ix = (int*)idx;
   const auto st = (cudaStream_t)stream;
   switch (R) {
-    case 1: return (int)launch<1>(p, q, o, B, P, tile, splits, st);
-    case 2: return (int)launch<2>(p, q, o, B, P, tile, splits, st);
-    case 4: return (int)launch<4>(p, q, o, B, P, tile, splits, st);
+    case 1: return (int)launch<1>(p, q, o, ix, B, P, tile, splits, st);
+    case 2: return (int)launch<2>(p, q, o, ix, B, P, tile, splits, st);
+    case 4: return (int)launch<4>(p, q, o, ix, B, P, tile, splits, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,1 +1,2 @@
-"""Host-side data contract (only the depth constants are ported so far)."""
+"""The LineMOD data contract: the index and its C++ parser, the PNG reader,
+the host crop and loader, and the device-resident store."""

@@ -11,8 +11,9 @@ crops are two matmuls per batch.
   - the train step gathers the batch's frames by index (the gather kernel)
     and crops them (train/loop.expand_device_batch).
 
-`DeviceFrameStore` is built from arrays. Building it from a LineMOD split
-on disk (cv2 decoding through the host loader) is not ported.
+`DeviceFrameStore` is built from arrays, or from a LineMOD split on disk
+through a host loader (`DeviceFrameStore.from_loader`: every frame decoded
+once by data/png.py).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from .. import DEFAULT_DEVICE
 from ..ops.gather_frames import pack_frames_host
 from .crop import CROP_EXPANSION, JITTER
+from .png import read_depth, read_png
 
 
 def _vector_crop_params(bbox_j: np.ndarray, bbox_orig: np.ndarray, img_w: int,
@@ -151,6 +153,39 @@ class DeviceFrameStore:
         self._trans = (np.asarray(trans_mm, np.float64).reshape(n, 3) / 1000.0).astype(np.float32)
         self._obj_id = np.asarray(obj_id, np.int32).reshape(n)
         self._cam_K = np.asarray(cam_K, np.float32).reshape(n, 3, 3)
+
+    @classmethod
+    def from_loader(cls, loader, device=DEFAULT_DEVICE) -> "DeviceFrameStore":
+        """The split of a data.pipeline.LineMODPoseLoader on `device`: every
+        frame decoded once (on the loader's threads), all of one size, with
+        the loader's img_size, flavour, bbox augmentation and samples."""
+        samples = loader.samples
+        if not samples:
+            raise ValueError("empty split")
+
+        def decode(s):
+            rgb = read_png(s.img_path)
+            depth = read_depth(s.depth_path, rgb.shape[:2]) if loader.with_depth else None
+            return rgb, depth
+
+        pool = getattr(loader, "_pool", None)
+        frames = list(pool.map(decode, samples)) if pool else [decode(s) for s in samples]
+        shape = frames[0][0].shape
+        for s, (rgb, depth) in zip(samples, frames):
+            if rgb.shape != shape or (depth is not None and depth.shape != shape[:2]):
+                raise ValueError(f"non-uniform frame {s.img_path}: {rgb.shape}, "
+                                 f"expected {shape}")
+        rgb = np.stack([f[0] for f in frames])
+        depth = np.stack([f[1] for f in frames]) if loader.with_depth else None
+        del frames
+        store = cls(rgb, depth, np.stack([s.bbox for s in samples]),
+                    np.stack([s.rot_mat for s in samples]),
+                    np.stack([s.trans_mm for s in samples]),
+                    np.asarray([s.obj_id for s in samples]),
+                    np.stack([s.cam_K for s in samples]), img_size=loader.img_size,
+                    flavor=loader.flavor, augment_bbox=loader.augment_bbox, device=device)
+        store.samples = samples
+        return store
 
     def __len__(self) -> int:
         return len(self._bbox)

@@ -289,16 +289,25 @@ class PoseNet(nn.Module):
                 depth_raw: Optional[torch.Tensor] = None,
                 bbox_center: Optional[torch.Tensor] = None,
                 camera_matrix: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                tower_dtype: Optional[torch.dtype] = None):
         """rgb [B, H, W, 3] normalized; depth [B, H, W, 1] normalized (rgbd);
         depth_raw [B, H, W] metres, bbox_center [B, 2] pixels and
         camera_matrix [B, 3, 3] for the geometric variants; generator for
         the dropouts in train mode. The float path runs in the parameters'
         dtype (f32 unless the module was converted) whatever the input
-        dtype."""
+        dtype. tower_dtype (torch.bfloat16: mixed-precision training) runs
+        the ResNet50 towers under torch.autocast in that dtype and rounds
+        their features to it, as flax's ResNet50(dtype=...) computes them;
+        the heads stay in the parameters' dtype, as flax promotes them."""
         dtype = self.rot_out.weight.dtype
-        feats = {name: getattr(self, name)(x.to(dtype))
-                 for name, x in self.tower_inputs(rgb, depth).items()}
+        inputs = self.tower_inputs(rgb, depth)
+        if tower_dtype is None or tower_dtype == dtype:
+            feats = {name: getattr(self, name)(x.to(dtype)) for name, x in inputs.items()}
+        else:
+            with torch.autocast(rgb.device.type, dtype=tower_dtype):
+                feats = {name: getattr(self, name)(x.to(dtype)) for name, x in inputs.items()}
+            feats = {k: v.to(tower_dtype).to(dtype) for k, v in feats.items()}
         return self.heads(feats, rgb, depth_raw, bbox_center, camera_matrix, generator)
 
 

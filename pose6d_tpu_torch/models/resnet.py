@@ -33,7 +33,9 @@ class BatchNorm(nn.BatchNorm2d):
     F.batch_norm does, and updates running = 0.9 * running + 0.1 * batch
     with the biased batch variance, as flax does (torch's own BatchNorm
     would update with the unbiased one). num_batches_tracked stays as it
-    is: flax keeps no such count."""
+    is: flax keeps no such count. A bf16 input (the towers under bf16
+    training) is normalized in f32 and comes out bf16, and the running
+    statistics stay f32, as flax's BatchNorm(dtype=bfloat16) does."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=BN_EPS)
@@ -48,7 +50,9 @@ class BatchNorm(nn.BatchNorm2d):
         self._check_input_dim(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0,) if x.dim() == 2 else (0, 2, 3),
+            # the statistics in f32 at least, as flax's are under bf16 compute
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(xs, dim=(0,) if x.dim() == 2 else (0, 2, 3),
                                        correction=0)
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)

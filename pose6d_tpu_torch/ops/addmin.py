@@ -11,7 +11,10 @@ tile of predicted points), its threads are `splits` GT splits x tile / R
 threads, each thread R predicted points. Split s scans the GT points
 j = s (mod splits) in increasing order and the splits merge by (d^2,
 index), so the argmin, and with it the output, is the same bits under
-every plan.
+every plan. With `return_index` the kernel also writes that argmin (the
+first GT index at the smallest f32 d^2), and the plain version gives the
+first index at its own smallest d^2; the differentiable ADD-S of
+losses/add.py backpropagates through it.
 """
 
 from __future__ import annotations
@@ -64,15 +67,19 @@ def addmin_plan(B: int, P: int) -> AddminPlan:
     return AddminPlan(tile, r, min(splits, P))
 
 
-def _pairwise_min_dist(pred_pts: torch.Tensor, gt_pts: torch.Tensor) -> torch.Tensor:
+def _pairwise_min_dist(pred_pts: torch.Tensor, gt_pts: torch.Tensor,
+                       return_index: bool = False):
     """Plain version, the JAX package's expansion (losses/add.py
     _pairwise_min_dist): sqrt(min_q max(|a|^2 + |b|^2 - 2 a.b, 0)) over the
-    [B, P, P] matrix from one batched matmul. [B,P,3] x [B,P,3] -> [B,P]."""
+    [B, P, P] matrix from one batched matmul. [B,P,3] x [B,P,3] -> [B,P]
+    (and the first argmin [B,P] int64 with return_index)."""
     pred2 = (pred_pts * pred_pts).sum(-1)
     gt2 = (gt_pts * gt_pts).sum(-1)
     cross = torch.einsum("bpi,bqi->bpq", pred_pts, gt_pts)
     d2 = torch.clamp_min(pred2[:, :, None] + gt2[:, None, :] - 2.0 * cross, 0.0)
-    return torch.sqrt(d2.min(dim=2).values)
+    best = d2.min(dim=2)
+    dist = torch.sqrt(best.values)
+    return (dist, best.indices) if return_index else dist
 
 
 def expansion_d2_atol(pred_pts: torch.Tensor, gt_pts: torch.Tensor) -> float:
@@ -86,18 +93,19 @@ def expansion_d2_atol(pred_pts: torch.Tensor, gt_pts: torch.Tensor) -> float:
     return 8 * eps * float(pred_pts.square().sum(-1).max() + gt_pts.square().sum(-1).max())
 
 
-def _launch_addmin(pred, gt, out, plan: AddminPlan, stream: int) -> None:
+def _launch_addmin(pred, gt, out, plan: AddminPlan, stream: int, idx=None) -> None:
     B, P, _ = pred.shape
     code = _build.lib().pose6d_addmin_forward(
-        pred.data_ptr(), gt.data_ptr(), out.data_ptr(), B, P, plan.tile, plan.r, plan.splits,
-        stream)
+        pred.data_ptr(), gt.data_ptr(), out.data_ptr(), None if idx is None else idx.data_ptr(),
+        B, P, plan.tile, plan.r, plan.splits, stream)
     _build.check(code, "pairwise_min_dist_kernel")
 
 
 def pairwise_min_dist_kernel(pred_pts: torch.Tensor, gt_pts: torch.Tensor,
-                             plan: AddminPlan | None = None) -> torch.Tensor:
+                             plan: AddminPlan | None = None, return_index: bool = False):
     """For each predicted point, the distance to the nearest GT point:
-    [B,P,3] x [B,P,3] f32 -> [B,P] f32. `plan` (default addmin_plan(B, P))
+    [B,P,3] x [B,P,3] f32 -> [B,P] f32; with return_index also the nearest
+    GT point's index [B,P] int64. `plan` (default addmin_plan(B, P))
     changes the kernel's grid, never its output."""
     if pred_pts.ndim != 3 or pred_pts.shape[-1] != 3 or pred_pts.shape[1] == 0:
         raise ValueError(f"pred_pts must be [B,P,3] with P > 0, got {tuple(pred_pts.shape)}")
@@ -107,12 +115,16 @@ def pairwise_min_dist_kernel(pred_pts: torch.Tensor, gt_pts: torch.Tensor,
         if tuple(t.shape) != tuple(pred_pts.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(pred_pts.shape)}")
     if pred_pts.device.type == "cpu":
-        return _pairwise_min_dist(pred_pts, gt_pts)
+        return _pairwise_min_dist(pred_pts, gt_pts, return_index)
     _build.check_on_card(pred_pts, (gt_pts,))
     if plan is None:
         plan = addmin_plan(*pred_pts.shape[:2])
     out = torch.empty(pred_pts.shape[:2], dtype=torch.float32, device=pred_pts.device)
+    idx = torch.empty(out.shape, dtype=torch.int32, device=out.device) if return_index else None
     with _build.on_device(pred_pts.device) as stream:
-        _launch_addmin(pred_pts, gt_pts, out, plan, stream)
+        if idx is None:
+            _launch_addmin(pred_pts, gt_pts, out, plan, stream)
+        else:
+            _launch_addmin(pred_pts, gt_pts, out, plan, stream, idx=idx)
     _build.launch_counts["pairwise_min_dist"] += 1
-    return out
+    return (out, idx.long()) if return_index else out

@@ -23,9 +23,11 @@ as optax chains them (reference train_rgb.py:70,110); the learning rate is
 settable between steps (PoseOptimizer.learning_rate), where the JAX package
 injects it as a hyperparameter for the host-side plateau scheduler.
 
-Not ported: bfloat16 training (compute_dtype "bfloat16" raises), the
-Trainer, checkpoints, warm-start from pretrained towers, and the host
-loader's compact batches beyond `decompress_batch`.
+Mixed precision (compute_dtype "bfloat16"): the towers' forward and
+backward run in bf16 under torch.autocast, as flax's ResNet50(dtype=bf16)
+does; parameters, optimizer state, BatchNorm running statistics, the heads
+and the loss stay f32. The eval step runs f32 whatever the compute dtype.
+The Trainer (train/trainer.py) drives these steps over a LineMOD split.
 """
 
 from __future__ import annotations
@@ -70,9 +72,12 @@ class TrainConfig:
     z_from_backbone: bool = False
     z_backbone_wide: bool = False
     attn_zero_init: bool = False
-    # only "float32" is ported; the JAX package's "bfloat16" mixed precision
-    # raises here
+    # "bfloat16": mixed-precision training (see the module docstring);
+    # validation always runs f32
     compute_dtype: str = "float32"
+
+
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -112,6 +117,13 @@ class PoseOptimizer:
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """AdamW's state: its moments, step counts and learning rate."""
+        return self.adamw.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state)
 
     def step(self) -> torch.Tensor:
         """Clip the gradients, take the AdamW step; returns the global
@@ -223,9 +235,8 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, model: Optional[PoseNet]
     (posenet.flax_init_), or `model` as given (e.g. weights carried from a
     flax tree by convert.posenet_from_jax), moved to `device`, with a fresh
     optimizer."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: only float32 "
-                                  f"training is ported")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
     if model is None:
         model = flax_init_(PoseNet(PoseNetConfig(
             variant=cfg.variant, img_size=cfg.img_size, rot_head_wide=cfg.rot_head_wide,
@@ -237,15 +248,17 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, model: Optional[PoseNet]
 
 def _make_core(cfg: TrainConfig) -> Callable:
     """The step body shared by the per-step and whole-epoch functions:
-    augment, forward, loss, backward, clip, AdamW; the BatchNorm statistics
-    update in the forward."""
+    augment, forward (the towers in cfg.compute_dtype), f32 loss, backward,
+    clip, AdamW; the BatchNorm statistics update in the forward."""
+    tower_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
 
     def core(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
         model, tx = state.model, state.tx
         rgb = train_augment(generator, batch["rgb"], cfg.augment)
         model.train()
         tx.zero_grad()
-        pred_rot, pred_trans = model(**model_inputs(cfg.variant, batch, rgb), generator=generator)
+        pred_rot, pred_trans = model(**model_inputs(cfg.variant, batch, rgb), generator=generator,
+                                     tower_dtype=tower_dtype)
         loss = pose_loss(pred_rot.float(), pred_trans.float(), batch["quat"], batch["trans"],
                          cfg.loss)
         loss.backward()
@@ -303,7 +316,8 @@ def make_train_epoch(cfg: TrainConfig, frame_hw: Optional[tuple] = None) -> Call
 
 
 def make_eval_step(cfg: TrainConfig, evaluator: ObjectModels) -> Callable:
-    """The eval step: (state, batch) -> metrics. Eval-mode forward in f32,
+    """The eval step: (state, batch) -> metrics. Eval-mode forward in f32
+    (whatever cfg.compute_dtype),
     batched ADD metrics through the addmin kernel over the batch's valid
     rows, and for rgb / rgbd also 'add_01d_acc_deploy', the accuracy with
     X/Y re-derived from the predicted Z, the box centre and the original

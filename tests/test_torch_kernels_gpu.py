@@ -12,7 +12,9 @@ in each geometry a stage gives it (dense 1x1, 3x3 at stride 1 and 2, the
 conv3 + shortcut pair, the identity residual; with and without split-K),
 the ADD-S nearest-point search (also at B 1/8/32 x P 1 to 5000, bit-equal under
 every forced plan and across launches, and bit for bit the first index at
-the smallest d^2 on ties planted in a padded cloud) and the frame-row gather (bit for bit
+the smallest d^2 on ties planted in a padded cloud, with its argmin output the
+same distances and the first index at the smallest d^2, and the ADD-S
+backward equal to the CPU's) and the frame-row gather (bit for bit
 equal to its plain version at batches 1, 3, 32 and 33 of 128- to
 230,400-word rows, with repeated and clamped indices). Beside
 them: each kernel launches on its input's card when another card is
@@ -42,7 +44,7 @@ from pose6d_tpu_torch.ops import addmin
 from pose6d_tpu_torch.ops import fused_block as fb
 from pose6d_tpu_torch.ops import gather_frames as gf
 from pose6d_tpu_torch.train import loop as tloop
-from torch_port_utils import addmin_expected, padded_cloud, plant_ties
+from torch_port_utils import addmin_expected, kernel_d2, padded_cloud, plant_ties
 
 pytestmark = pytest.mark.gpu
 
@@ -329,6 +331,45 @@ def test_addmin_ties_on_a_padded_cloud(cuda):
     pred_t, gt_t = torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda)
     for plan in (None,) + ADDMIN_PLANS:
         assert torch.equal(addmin.pairwise_min_dist_kernel(pred_t, gt_t, plan=plan), want), plan
+
+
+def test_addmin_index_output(cuda):
+    """The argmin output of the ADD-S loss (return_index) on a padded cloud
+    with planted ties: under every plan the distances are the bits of the
+    call without it, and the index is the first GT point at the smallest
+    f32 d^2 (kernel_d2, an exact emulation of the kernel's arithmetic).
+    The differentiable ADD-S (losses/add.py NearestDistance) built on it
+    gives the CPU's gradient, where the plain version picks the same
+    nearest points."""
+    from pose6d_tpu_torch.losses.add import NearestDistance
+
+    rng = np.random.default_rng(6)
+    B, P = 2, 300
+    gt = np.stack([padded_cloud(rng, P, 200) for _ in range(B)])
+    pred = (gt[:, rng.permutation(P)] + rng.normal(0, 0.004, (B, P, 3))).astype(np.float32)
+    for b in range(B):
+        for i in range(40):
+            j1, j2 = sorted(rng.choice(P, 2, replace=False))
+            assert plant_ties(rng, pred[b, i], gt[b], j1, j2)
+    want_idx = torch.from_numpy(kernel_d2(pred, gt).argmin(-1)).to(cuda)
+    pred_t, gt_t = torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda)
+    want = addmin.pairwise_min_dist_kernel(pred_t, gt_t)
+    for plan in (None,) + ADDMIN_PLANS:
+        before = _build.launch_counts["pairwise_min_dist"]
+        dist, idx = addmin.pairwise_min_dist_kernel(pred_t, gt_t, plan=plan, return_index=True)
+        assert _build.launch_counts["pairwise_min_dist"] == before + 1
+        assert torch.equal(dist, want), plan
+        assert idx.dtype == torch.int64 and torch.equal(idx, want_idx), plan
+
+    far = rng.normal(0, 0.05, (B, P, 3)).astype(np.float32)  # no near-ties: one argmin
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = torch.from_numpy(far).to(dev).requires_grad_(True)
+        g = torch.from_numpy(gt).to(dev).requires_grad_(True)
+        (NearestDistance.apply(p, g) * torch.linspace(0.5, 1.5, P, device=dev)).sum().backward()
+        grads[str(dev)] = (p.grad.cpu(), g.grad.cpu())
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
 
 
 def test_kernels_refuse_non_contiguous(cuda):

@@ -1,6 +1,8 @@
-"""pose6d_tpu_torch imports nothing of JAX, flax, torchvision, cv2 or the
-JAX package: every submodule imports in a fresh interpreter in which those
-names are blocked (the card's machine has none of them installed)."""
+"""pose6d_tpu_torch imports nothing of JAX, flax, torchvision, cv2, PyYAML,
+PIL or the JAX package: every submodule imports in a fresh interpreter in
+which those names are blocked (the card's machine has none of them
+installed), and the LineMOD loader, the parser and the trainer also run a
+batch there."""
 
 import os
 import pkgutil
@@ -10,7 +12,7 @@ import sys
 import pose6d_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "torchvision", "cv2", "pose6d_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "torchvision", "cv2", "yaml", "PIL", "pose6d_tpu")
 
 _PROBE = """
 import importlib, importlib.abc, sys
@@ -61,3 +63,30 @@ def test_chip_smoke_refuses_without_a_card():
                        text=True, timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+_LOADER_RUN = """
+import numpy as np
+from pose6d_tpu_torch.data.pipeline import LineMODPoseLoader
+from pose6d_tpu_torch.losses.add import load_object_models
+loader = LineMODPoseLoader({data!r}, mode="train", flavor="rgbd", img_size=32, num_workers=0,
+                           compact_arrays=True)
+batch = next(loader.batches(4, np.random.default_rng(0)))
+models = load_object_models({models!r})
+print("batch", batch["rgb"].shape, batch["depth_mm"].dtype, int(models.present.sum()))
+"""
+
+
+def test_loader_runs_without_cv2_yaml_or_pil(tmp_path):
+    """The loader decodes, parses and crops a generated LineMOD tree, and
+    the meshes load, with cv2, yaml and PIL blocked."""
+    from pose6d_tpu.data.synthetic import generate_synthetic_linemod
+
+    paths = generate_synthetic_linemod(str(tmp_path), obj_ids=(1,), frames_per_obj=10,
+                                       img_w=96, img_h=64, seed=1)
+    code = _PROBE.format(blocked=BLOCKED, modules=[]).replace("import chip_smoke\n", "")
+    code += _LOADER_RUN.format(data=paths["data"], models=paths["models"])
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "batch (4, 32, 32, 3) uint16 1" in r.stdout

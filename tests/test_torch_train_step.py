@@ -187,8 +187,12 @@ def test_create_train_state_and_learning_rate():
     assert state.step == 0 and state.tx.learning_rate == 3e-4
     state.tx.learning_rate = 1e-5
     assert all(g["lr"] == 1e-5 for g in state.tx.adamw.param_groups)
-    with pytest.raises(NotImplementedError):
-        tloop.create_train_state(tloop.TrainConfig(compute_dtype="bfloat16"), device="cpu")
+    # bf16 is mixed precision: the module and its optimizer state stay f32
+    bf16 = tloop.create_train_state(tloop.TrainConfig(variant="rgb", img_size=32,
+                                                      compute_dtype="bfloat16"), device="cpu")
+    assert all(p.dtype == torch.float32 for p in bf16.model.parameters())
+    with pytest.raises(ValueError):
+        tloop.create_train_state(tloop.TrainConfig(compute_dtype="float16"), device="cpu")
 
 
 def test_epoch_equals_its_steps():

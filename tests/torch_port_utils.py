@@ -6,6 +6,21 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Two torch intra-op threads for a module of many small CPU ops
+    (import it into the test module): with one thread per core in each of
+    a test run's worker processes, every parallel region waits on
+    descheduled threads, and a 5 s Trainer fit took over 2 minutes."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def random_flax_variables(model, *args, seed: int = 0, trainable: bool = False, **kwargs):
@@ -502,3 +517,118 @@ def plant_ties(rng, p, gt, j_first: int, j_second: int, radius: float = 0.002) -
             gt[j_first], gt[j_second] = cand[far], cand[near]
             return True
     return False
+
+
+# ------------------------------------------------------------ bf16 training
+
+# The bf16 step's bounds against the JAX step in float64, relative: the
+# loss, the gradient global norm, the whole gradient as one vector in L2,
+# and the BN running statistics' largest error over their largest
+# magnitude. JAX's own bf16 step (PoseNetConfig dtype bfloat16, params f32)
+# meets them, and test_torch_bf16_step_* assert that it does. Its readings
+# at batch 8 on one_train_step_both's weights and split: loss 0.002-0.013,
+# grad norm 0.002-0.020, gradient L2 0.39-0.68 (bf16 rounding dominates the
+# remainders of cancelling sums that the f32 tests see at 2e-2), BN stats
+# 0.004-0.006 (rgb seeds 0-2, rgbd seed 0); the port's 0.003-0.035,
+# 0.005-0.010, 0.42-0.62, 0.005-0.006. At batch_size 4 the heads'
+# train-mode BatchNorm over 4 samples amplifies the towers' bf16 rounding
+# into the grad norm (JAX 0.03-0.09, the port 0.10-0.63 over seeds 0-3),
+# so the step runs at 8.
+BF16_BOUNDS = {"loss": 5e-2, "grad_norm": 5e-2, "grad_l2": 0.8, "bn_stats": 2e-2}
+BF16_BATCH = 8
+
+
+def bf16_step_errors(variant: str, seed: int = 0, batch_size: int = BF16_BATCH):
+    """One compute_dtype="bfloat16" train step of `variant` at TRAIN_S in
+    both packages, from one_train_step_both's variables and split (a batch
+    of batch_size <= 8 of its frames; dropout and augmentation off), against
+    the JAX step run in float64: {"jax": errors of JAX's bf16 step, "port": errors of the
+    port's}, each {"loss", "grad_norm", "grad_l2", "bn_stats"} as
+    BF16_BOUNDS defines them."""
+    from unittest import mock
+
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from pose6d_tpu.models.posenet import PoseNet as JPoseNet, PoseNetConfig as JPoseNetConfig
+    from pose6d_tpu.ops.augment import eval_preprocess as j_eval_preprocess
+    from pose6d_tpu.train import loop as jloop
+    from pose6d_tpu_torch.convert import posenet_from_jax
+    from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
+    from pose6d_tpu_torch.models.posenet import PoseNet, PoseNetConfig
+    from pose6d_tpu_torch.ops.augment import eval_preprocess
+    from pose6d_tpu_torch.train import loop as tloop
+
+    S, B = TRAIN_S, batch_size
+    dummy = {"rgb": jnp.zeros((1, S, S, 3)), "depth": jnp.zeros((1, S, S, 1)),
+             "depth_raw": jnp.zeros((1, S, S)), "center_orig": jnp.zeros((1, 2)),
+             "center_crop": jnp.zeros((1, 2)), "cam_K": jnp.eye(3)[None],
+             "cam_K_crop": jnp.eye(3)[None]}
+    variables = random_flax_variables(
+        JPoseNet(JPoseNetConfig(variant=variant, img_size=S)),
+        **jloop.model_inputs(variant, dummy, dummy["rgb"]), seed=seed, trainable=True)
+    store = DeviceFrameStore(*train_split(seed), img_size=S, device="cpu",
+                             flavor="rgbd" if variant.startswith("rgbd") else "rgb")
+    meta = store.meta_batch(np.array([5, 0, 11, 2, 7, 9, 1, 4])[:B],
+                            np.random.default_rng(seed + 1))
+    batch = tloop.expand_device_batch(
+        store.rgb_frames, store.depth_frames,
+        {k: torch.from_numpy(v) for k, v in meta.items()}, S, TRAIN_HW)
+    batch = {k: v.numpy() for k, v in batch.items()}
+
+    def flat(tree):
+        return {k: v.double() for k, v in posenet_from_jax(tree).items()}
+
+    to_np = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float64), t)  # noqa: E731
+    runs = {}
+    with nn.intercept_methods(no_dropout_interceptor), \
+            mock.patch.object(jloop, "train_augment",
+                              lambda key, rgb, cfg: j_eval_preprocess(rgb)):
+        for name, dtype, x64 in (("f64", jnp.float64, True), ("jax", jnp.bfloat16, False)):
+            with jax.enable_x64(x64):
+                cast = (lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)) \
+                    if x64 else (lambda t: jax.tree.map(jnp.asarray, t))
+                jmodel = JPoseNet(JPoseNetConfig(variant=variant, img_size=S, dtype=dtype))
+                jcfg = jloop.TrainConfig(variant=variant, img_size=S, batch_size=B)
+                tx = grad_capture_tx()
+                params = cast(variables["params"])
+                jstate = jloop.TrainState(params=params, batch_stats=cast(variables["batch_stats"]),
+                                          opt_state=tx.init(params),
+                                          step=jnp.zeros((), jnp.int32))
+                new, m = jloop.make_train_step(jmodel, tx, jcfg)(
+                    jstate, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.key(seed))
+                runs[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                              "grads": flat({"params": to_np(new.opt_state["g"])}),
+                              "stats": flat({"params": {}, "batch_stats": to_np(new.batch_stats)})}
+
+    tcfg = tloop.TrainConfig(variant=variant, img_size=S, batch_size=B, grad_clip=1e9,
+                             compute_dtype="bfloat16")
+    model = PoseNet(PoseNetConfig(variant=variant, img_size=S))
+    model.load_state_dict(posenet_from_jax(variables), strict=True)
+    state = tloop.create_train_state(tcfg, model=disable_dropout(model), device="cpu")
+    with mock.patch.object(tloop, "train_augment", lambda g, rgb, cfg: eval_preprocess(rgb)):
+        state, m = tloop.make_train_step(tcfg)(state, batch, torch.Generator().manual_seed(seed))
+    runs["port"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "grads": {k: p.grad.detach().double() for k, p in
+                              state.model.named_parameters()},
+                    "stats": {k: v.double() for k, v in state.model.state_dict().items()}}
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+
+    ref = runs["f64"]
+    keys = sorted(ref["grads"])
+    ref_g = torch.cat([ref["grads"][k].flatten() for k in keys])
+    stat_keys = [k for k in ref["stats"] if "running_" in k]
+    out = {}
+    for name in ("jax", "port"):
+        r = runs[name]
+        g = torch.cat([r["grads"][k].flatten() for k in keys])
+        out[name] = {
+            "loss": abs(r["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_norm": abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+            "grad_l2": float((g - ref_g).norm() / ref_g.norm()),
+            "bn_stats": max(float((r["stats"][k] - ref["stats"][k]).abs().max()
+                                  / ref["stats"][k].abs().max()) for k in stat_keys),
+        }
+    return out
