@@ -117,7 +117,21 @@ Phases, each printed on its own line with its seconds:
      (finite; towers bf16 in training, f32 in validation); prints ms/step
      (CUDA events), PNG decode ms per frame, the loader's ms per batch and
      the epoch-timing split (phase_train_disk);
- 12. kernels: one JSON line with every kernel's numbers; launches are the
+ 12. train detector from disk: the JAX detector trainer ported,
+     DetectionTrainer(DetTrainConfig(epochs=2)) -> fit(), at full width
+     (YOLOv8n from the flax init, 640, batch 16, f32, HSV + flip + affine
+     on the card, EMA, AdamW with warmup-cosine) on a seeded LineMOD tree
+     of the 13 LineMOD folders, 40 RGB frames each (416 train, 52 val;
+     generator SEED + 13): one step on the card against the same step on
+     the CPU (losses within DET_LOSS_RTOL, fg equal), a poisoned batch
+     (one inf pixel) leaving parameters and BN statistics bitwise as they
+     were, an epoch's batches resident on the card timed by CUDA events
+     and one step profiled, fit() with every step under sync-debug
+     "error", metrics.csv and last / best, a second trainer resuming bit
+     for bit at step 52 on the 2-epoch schedule and running epoch 3, and
+     load_yolo_variables(prefer="best") serving one request through an rgb
+     PosePipeline; none of the five kernels runs (phase_train_detector);
+ 13. kernels: one JSON line with every kernel's numbers; launches are the
      sums over the slice, add and train runs, on the row of the kernel and
      the batch they ran at (the stem and layer1 at 32 in phase 6, at 8
      elsewhere; addmin at 8 in phase 9 and at 32 in phases 9, 10 and 11; the
@@ -1178,13 +1192,16 @@ def seeded_frame(rng, bbox, z_mm: float, color):
     return np.clip(img, 0, 255).astype(np.uint8), depth
 
 
-def write_linemod_tree(root: str, rng) -> dict:
+def write_linemod_tree(root: str, rng, objects: dict = DISK_OBJECTS, frames: int = DISK_FRAMES,
+                       depth: bool = True) -> dict:
     """A seeded LineMOD tree under root, written without cv2 or yaml:
-    data/<01, 10>/{rgb,depth}/NNNN.png (DISK_FRAMES 640x480 frames each,
-    encode_png), gt.yml and info.yml in LineMOD's flow-list form, and
-    models/obj_NN.ply (ASCII, over 500 vertices in the object's cube) with
-    models_info.yml. Every PNG written is read back by data/png.py and must
-    equal its array bit for bit; returns the decode times (ms per frame)."""
+    data/<NN>/rgb/NNNN.png and, with depth, data/<NN>/depth/NNNN.png
+    (`frames` 640x480 frames in each folder of `objects`, encode_png),
+    gt.yml and info.yml in LineMOD's flow-list form, and models/obj_NN.ply
+    (ASCII, the object's vertex count in its cube) with models_info.yml.
+    The draws are the same with or without depth. Every PNG written is read
+    back by data/png.py and must equal its array bit for bit; returns the
+    decode times (ms per frame)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pose6d_tpu_torch.data.png import read_png
@@ -1192,7 +1209,7 @@ def write_linemod_tree(root: str, rng) -> dict:
     data, models = os.path.join(root, "data"), os.path.join(root, "models")
     os.makedirs(models, exist_ok=True)
     info_lines, written = [], []
-    for obj, (half, n_pts) in DISK_OBJECTS.items():
+    for obj, (half, n_pts) in objects.items():
         pts = rng.uniform(-half, half, (n_pts, 3))
         with open(os.path.join(models, f"obj_{obj:02d}.ply"), "w") as f:
             f.write(f"ply\nformat ascii 1.0\nelement vertex {len(pts)}\nproperty float x\n"
@@ -1201,11 +1218,11 @@ def write_linemod_tree(root: str, rng) -> dict:
         info_lines.append(f"{obj}: {{diameter: {2 * half * np.sqrt(3):.6f}, "
                           f"min_x: {-half}, size_x: {2 * half}}}\n")
         base = os.path.join(data, f"{obj:02d}")
-        for sub in ("rgb", "depth"):
+        for sub in ("rgb", "depth") if depth else ("rgb",):
             os.makedirs(os.path.join(base, sub), exist_ok=True)
         color = rng.integers(60, 230, 3)
         gt, info = [], []
-        for frame in range(DISK_FRAMES):
+        for frame in range(frames):
             wh = rng.integers(60, 200, 2)
             xy = (rng.uniform(0, 1, 2) * (np.array([FRAME_W, FRAME_H]) - wh)).astype(int)
             bbox = [int(xy[0]), int(xy[1]), int(wh[0]), int(wh[1])]
@@ -1215,10 +1232,11 @@ def write_linemod_tree(root: str, rng) -> dict:
                    2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
                    2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]
             t = [rng.uniform(-100, 100), rng.uniform(-100, 100), rng.uniform(600, 1000)]
-            rgb, depth = seeded_frame(rng, bbox, t[2], color)
+            rgb, depth_mm = seeded_frame(rng, bbox, t[2], color)
             name = f"{frame:04d}.png"
-            written += [(os.path.join(base, "rgb", name), rgb),
-                        (os.path.join(base, "depth", name), depth)]
+            written.append((os.path.join(base, "rgb", name), rgb))
+            if depth:
+                written.append((os.path.join(base, "depth", name), depth_mm))
             gt.append(f"{frame}:\n- cam_R_m2c: {[float(v) for v in rot]}\n"
                       f"  cam_t_m2c: {[float(v) for v in t]}\n  obj_bb: {bbox}\n"
                       f"  obj_id: {obj}\n")
@@ -1244,8 +1262,8 @@ def write_linemod_tree(root: str, rng) -> dict:
         times["rgb" if arr.ndim == 3 else "depth"].append((time.perf_counter() - t0) * 1e3)
         check(got.dtype == arr.dtype and np.array_equal(got, arr),
               f"{path} does not decode to the array written")
-    return {"data": data, "models": models, "frames": len(written) // 2,
-            "decode_ms": {k: statistics.median(v) for k, v in times.items()}}
+    return {"data": data, "models": models, "frames": len(times["rgb"]),
+            "decode_ms": {k: statistics.median(v) for k, v in times.items() if v}}
 
 
 class EpochProbe:
@@ -1492,6 +1510,299 @@ def phase_train_disk(rng, smi: str):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return totals, out
+
+
+# ------------------------------------------------------ train detector from disk
+
+# LineMOD's 13 object folders (no 03 or 07, so folder 04 is class 2)
+LINEMOD_FOLDERS = (1, 2, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15)
+DET_FRAMES = 40      # frames per folder: 32 train, 4 val, 4 test (LineMOD has ~1,200)
+DET_LOSS_RTOL = 1e-4  # one step's losses, card vs CPU (f32, TF32 off)
+DET_LOG_HEADER = "epoch,train_loss,map50,best_map50,lr,epoch_seconds"  # the JAX trainer's
+
+
+class StepProbe:
+    """Wraps a DetectionTrainer's step_fn: each call runs under
+    torch.cuda.set_sync_debug_mode("error") (any wait for the card raises);
+    counts the calls."""
+
+    def __init__(self, trainer):
+        self.fn, self.calls = trainer.step_fn, 0
+        trainer.step_fn = self
+
+    def __call__(self, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self.fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        self.calls += 1
+        return out
+
+
+def timed(obj, name: str, seconds: list):
+    """Wrap obj.<name> so that each call appends its host-clock seconds."""
+    fn = getattr(obj, name)
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, call)
+
+
+def det_batch(batch: dict, device) -> dict:
+    from pose6d_tpu_torch.train.loop import to_device
+
+    return to_device({k: batch[k] for k in ("image", "gt_boxes", "gt_labels", "gt_mask")}, device)
+
+
+def check_det_step_card_vs_cpu(tr, batch: dict) -> dict:
+    """One guarded step of the trainer's weights on the card and on the CPU
+    from copies of the model and optimizer, on the same batch and the same
+    augmentation draws: box / cls / dfl / total within DET_LOSS_RTOL and
+    num_fg equal; the card's step under sync-debug "error". Then a poisoned
+    batch (one inf pixel) on the card: parameters and BatchNorm statistics
+    bitwise unchanged, Adam's moments scaled by b1 and b2 as zero gradients
+    scale them, the count advanced. Returns the losses."""
+    import copy
+
+    from pose6d_tpu_torch.models.yolo.train import (DetOptimizer, bn_buffers, draw_det_augment,
+                                                    make_det_train_step)
+
+    cfg = tr.cfg
+    runs = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    draws = draw_det_augment(gen, cfg.batch_size, cfg, "cuda")
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(tr.model).to(dev)
+        tx = DetOptimizer(model.parameters(), cfg, tr.tx.warmup_steps, tr.tx.total_steps)
+        step = make_det_train_step(cfg, tr.ycfg, dev)
+        args = (model, tx, det_batch(batch, dev), {k: v.to(dev) for k, v in draws.items()})
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs[dev] = ({k: float(v) for k, v in losses.items()}, model, tx, step)
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    check(got["num_fg"] == want["num_fg"] > 0, f"num_fg card {got['num_fg']} cpu {want['num_fg']}")
+    for k in ("total", "box", "cls", "dfl"):
+        check(np.isfinite(got[k]) and abs(got[k] - want[k]) <= DET_LOSS_RTOL * abs(want[k]),
+              f"{k}: card {got[k]!r} cpu {want[k]!r}")
+
+    _, model, tx, step = runs["cuda"]
+    poisoned = det_batch(batch, "cuda")
+    poisoned["image"] = poisoned["image"].float() / 255.0
+    poisoned["image"][1, 10, 20, 1] = float("inf")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    mu, nu, count = [m.clone() for m in tx.mu], [n.clone() for n in tx.nu], tx.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = step(model, tx, poisoned, draw_det_augment(gen, cfg.batch_size, cfg, "cuda"))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(not bool(torch.isfinite(losses["total"])), "the poisoned batch gave a finite loss")
+    after = model.state_dict()
+    check(all(torch.equal(after[k], state[k]) for k in state),
+          "the poisoned step moved a parameter or a BatchNorm statistic")
+    check(len(bn_buffers(model)) == 2 * 57, "YOLOv8n has 57 BatchNorms")
+    check(tx.count == count + 1
+          and all(torch.equal(a, b * tx.B1) for a, b in zip(tx.mu, mu))
+          and all(torch.equal(a, b * tx.B2) for a, b in zip(tx.nu, nu)),
+          "the poisoned step's moments are not those of zero gradients")
+    return got
+
+
+def phase_train_detector(rng, smi: str):
+    """The JAX detector trainer ported: DetectionTrainer(DetTrainConfig(
+    epochs=2)) at full width (YOLOv8n, 640, batch 16, f32; nc 13) from the
+    flax init on a seeded LineMOD tree of 13 folders (write_linemod_tree,
+    RGB only):
+      A. one step on the card against the same step on the CPU, and the
+         non-finite guard on the card (check_det_step_card_vs_cpu);
+      B. an epoch's batches resident on the card, stepped under sync-debug
+         "error" between two CUDA events (ms per step), one more step under
+         the profiler;
+      C. fit(): every step under sync-debug "error"; finite losses;
+         metrics.csv with the JAX header and 2 rows; `last` and `best`
+         (mAP@50 rises above the initial -1 at epoch 1);
+      D. a second trainer resumes `last` bit for bit (parameters, BatchNorm
+         statistics, EMA, moments, count, meta) at step 52 with the
+         2-epoch schedule (total 52, warmup 51) and fit(epochs=3) runs one
+         epoch, the lr of metrics.csv that schedule's at step 78;
+      E. load_yolo_variables(prefer="best") serves one request of 8 frames
+         through an rgb PosePipeline.
+    None of the five kernels runs. Returns the readings."""
+    import copy
+    import shutil
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.convert import init_posenet_weights
+    from pose6d_tpu_torch.data.png import read_png
+    from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
+    from pose6d_tpu_torch.models.posenet import PoseNetConfig
+    from pose6d_tpu_torch.models.yolo.train import (DetOptimizer, DetTrainConfig,
+                                                    DetectionTrainer, draw_det_augment,
+                                                    load_yolo_variables, make_det_train_step)
+    from pose6d_tpu_torch.train.schedule import warmup_cosine_decay
+
+    root = os.path.join(_build.BUILD_DIR, "smoke_linemod_det")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = write_linemod_tree(root, rng, {f: (40.0, 600) for f in LINEMOD_FOLDERS}, DET_FRAMES,
+                              depth=False)
+    log(f"  seeded LineMOD tree: {tree['frames']} RGB frames of {FRAME_W}x{FRAME_H} in "
+        f"{len(LINEMOD_FOLDERS)} folders, every PNG decodes bit-equal "
+        f"({time.perf_counter() - t0:.1f}s)")
+    out = {}
+    _build.launch_counts.clear()
+    try:
+        t0 = time.perf_counter()
+        cfg = DetTrainConfig(epochs=2)
+        save = os.path.join(root, "save")
+        tr = DetectionTrainer(tree["data"], save, cfg, device="cuda")
+        n_train, n_val = len(tr.train_loader), len(tr.val_loader)
+        steps = n_train // cfg.batch_size
+        check((n_train, n_val, steps, tr.ycfg.num_classes) == (416, 52, 26, 13)
+              and (tr.tx.warmup_steps, tr.tx.total_steps) == (51, 52)
+              and (cfg.img_size, cfg.batch_size, tr.ycfg.width, tr.ycfg.reg_max) == (640, 16, 0.25, 16),
+              f"the detector run's shape: {n_train} train, {n_val} val, {steps} steps, "
+              f"nc {tr.ycfg.num_classes}, schedule {tr.tx.warmup_steps}/{tr.tx.total_steps}")
+        batches = list(tr.train_loader.batches(cfg.batch_size, np.random.default_rng(SEED)))
+
+        # ---- A: card vs CPU, the guard
+        losses = check_det_step_card_vs_cpu(tr, batches[0])
+        log(f"  A: one step, card = CPU within {DET_LOSS_RTOL} (total {losses['total']:.6f}, box "
+            f"{losses['box']:.6f}, cls {losses['cls']:.6f}, dfl {losses['dfl']:.6f}, "
+            f"{int(losses['num_fg'])} fg anchors); a poisoned batch left the parameters and "
+            f"BN statistics bitwise unchanged and scaled the moments as zero gradients "
+            f"({time.perf_counter() - t0:.1f}s)")
+
+        # ---- B: an epoch's batches resident on the card, CUDA events
+        t0 = time.perf_counter()
+        model = copy.deepcopy(tr.model)
+        tx = DetOptimizer(model.parameters(), cfg, tr.tx.warmup_steps, tr.tx.total_steps)
+        step = make_det_train_step(cfg, tr.ycfg, "cuda")
+        resident = [det_batch(b, "cuda") for b in batches]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        step(model, tx, resident[0], draw_det_augment(gen, cfg.batch_size, cfg, "cuda"))  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        totals = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            for b in resident:
+                totals.append(step(model, tx, b, draw_det_augment(gen, cfg.batch_size, cfg,
+                                                                  "cuda"))["total"])
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        end.synchronize()
+        out["ms_step"] = start.elapsed_time(end) / len(resident)
+        check(bool(torch.isfinite(torch.stack(totals)).all()), "non-finite resident-step losses")
+        profile_kernels(lambda: step(model, tx, resident[1],
+                                     draw_det_augment(gen, cfg.batch_size, cfg, "cuda")),
+                        "one detector step", out["ms_step"])
+        del model, tx, resident, totals
+        log(f"  B: {len(batches)} steps resident on the card: {out['ms_step']:.3f} ms/step "
+            f"(CUDA events, sync-debug 'error') on {smi} ({time.perf_counter() - t0:.1f}s)")
+
+        # ---- C: fit through the loader
+        t0 = time.perf_counter()
+        n_b = sum(1 for _ in tr.train_loader.batches(cfg.batch_size, np.random.default_rng(SEED)))
+        out["loader_ms_batch"] = (time.perf_counter() - t0) * 1e3 / n_b
+        probe = StepProbe(tr)
+        epoch_s, val_s = [], []
+        timed(tr, "train_epoch", epoch_s)
+        timed(tr, "validate_map50", val_s)
+        maps = []
+        validate = tr.validate_map50
+
+        def record_map(rng_):
+            maps.append(validate(rng_))
+            return maps[-1]
+
+        tr.validate_map50 = record_map
+        tr.fit()
+        check(probe.calls == steps * cfg.epochs, f"fit ran {probe.calls} steps")
+        with open(os.path.join(save, "metrics.csv")) as f:
+            rows = f.read().splitlines()
+        check(rows[0] == DET_LOG_HEADER and len(rows) == 3
+              and all(np.isfinite(float(r.split(",")[1])) for r in rows[1:]),
+              f"metrics.csv {rows}")
+        check(os.path.exists(os.path.join(save, "last.pt"))
+              and os.path.exists(os.path.join(save, "best.pt")), "last or best missing")
+        out["fit_ms_step"] = 1e3 * statistics.mean(epoch_s) / steps
+        out["val_s"], out["map50"] = val_s, maps
+        log(f"  C: fit, {cfg.epochs} epochs of {steps} steps through the loader: "
+            f"{out['fit_ms_step']:.1f} ms/step (host clock, the loader's prefetch thread "
+            f"overlapping the steps), the loader alone {out['loader_ms_batch']:.1f} ms per "
+            f"batch of 16; losses {[r.split(',')[1] for r in rows[1:]]}; validation "
+            f"{', '.join(f'{v:.2f}' for v in val_s)} s, mAP@50 {maps} (plumbing: 2 epochs of "
+            f"seeded data) on {smi} ({time.perf_counter() - t0:.1f}s)")
+
+        # ---- D: resume
+        t0 = time.perf_counter()
+        saved = tr._ckpt_tree()
+        tr.close()
+        tr2 = DetectionTrainer(tree["data"], save, cfg, device="cuda")
+        check(tr2.try_resume(), "resume failed")
+        got = tr2._ckpt_tree()
+        same = got["meta"] == saved["meta"] and got["opt_state"]["count"] == saved["opt_state"]["count"]
+        for part in ("params", "batch_stats", "ema_params"):
+            same &= all(torch.equal(got[part][k], saved[part][k]) for k in saved[part])
+        for k in ("mu", "nu"):
+            same &= all(torch.equal(got["opt_state"][k][n], saved["opt_state"][k][n])
+                        for n in saved["opt_state"][k])
+        check(same, "the resumed state differs from the saved one")
+        lr52 = warmup_cosine_decay(52, 0.0, cfg.learning_rate, 51, 52, cfg.learning_rate * 0.01)
+        check(tr2.global_step == 52 and (tr2.tx.warmup_steps, tr2.tx.total_steps) == (51, 52)
+              and tr2.tx.lr(tr2.global_step) == lr52,
+              f"resumed at step {tr2.global_step}, schedule {tr2.tx.warmup_steps}/"
+              f"{tr2.tx.total_steps}, lr {tr2.tx.lr(tr2.global_step)}")
+        probe = StepProbe(tr2)
+        tr2.fit(epochs=cfg.epochs + 1)
+        with open(os.path.join(save, "metrics.csv")) as f:
+            rows = f.read().splitlines()
+        lr78 = warmup_cosine_decay(78, 0.0, cfg.learning_rate, 51, 52, cfg.learning_rate * 0.01)
+        check(probe.calls == steps and tr2.global_step == 78 and len(rows) == 4
+              and rows[-1].split(",")[4] == f"{lr78:.8f}",
+              f"fit(epochs=3) after resume: {probe.calls} steps, step {tr2.global_step}, "
+              f"rows {rows[1:]}")
+        tr2.close()
+        log(f"  D: resume bit-equal (parameters, BN statistics, EMA, moments, count, meta) at "
+            f"step 52, schedule 51/52, lr {lr52:.8f}; fit(epochs=3) ran one epoch to step 78 "
+            f"({time.perf_counter() - t0:.1f}s)")
+
+        # ---- E: serve the trained detector
+        t0 = time.perf_counter()
+        sd = load_yolo_variables(save, tr.ycfg, prefer="best")
+        check(sd is not None, "no detector to load from best")
+        pose_cfg = PoseNetConfig(variant="rgb")
+        pipe = PosePipeline(PipelineConfig(variant="rgb", img_size=224), tr.ycfg, sd,
+                            init_posenet_weights(pose_cfg, SEED + 13), pose_cfg, device="cuda")
+        names = sorted(os.listdir(os.path.join(tree["data"], "01", "rgb")))[:BATCH]
+        frames = np.stack([read_png(os.path.join(tree["data"], "01", "rgb", n)) for n in names])
+        with torch.inference_mode():
+            res = pipe(frames, LINEMOD_K)
+        torch.cuda.synchronize()
+        check(res["rotation"].shape[0] == BATCH
+              and all(bool(torch.isfinite(res[k]).all()) for k in ("rotation", "translation",
+                                                                    "bbox_xywh")),
+              "the served request is not finite")
+        check(dict(_build.launch_counts) == {},
+              f"the detector phase launched kernels: {dict(_build.launch_counts)}")
+        log(f"  E: load_yolo_variables(prefer='best') served one request of {BATCH} frames "
+            f"through an rgb PosePipeline ({time.perf_counter() - t0:.1f}s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def profile_kernels(fn, what: str, unprofiled_ms: float, top: int = 10) -> None:
@@ -1893,18 +2204,30 @@ def main() -> int:
         f"resume exact; gathers {counts['gather_rows_u32']}, addmin "
         f"{counts['pairwise_min_dist']} ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    # the detector phase draws from a generator of its own
+    det = phase_train_detector(np.random.default_rng(SEED + 13), smi)
+    log(f"[phase 12 train detector from disk] DetectionTrainer(DetTrainConfig(epochs=2)) on a "
+        f"seeded LineMOD tree of {len(LINEMOD_FOLDERS)} folders, YOLOv8n at 640, batch 16, f32 "
+        f"(TF32 off) on {smi}: {det['ms_step']:.3f} ms/step resident (CUDA events), "
+        f"{det['fit_ms_step']:.1f} ms/step through the loader (host clock), the loader "
+        f"{det['loader_ms_batch']:.1f} ms per batch of 16, validation "
+        f"{max(det['val_s']):.2f} s; card = CPU, the guard, resume exact, the trained detector "
+        f"served; none of the five kernels ran ({time.perf_counter() - t0:.1f}s)")
+
     # the b32 addmin row: phase 3's inputs and the eval step's
     r = by_id[("pairwise_min_dist", 32)]
     r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 12 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 13 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())
         + f"; train rgbd {train['step_ms']:.3f} ms/step, from disk {disk['a_ms_step']:.3f} "
-          f"(f32) / {disk['c_ms_step']:.3f} (bf16) ms/step"
+          f"(f32) / {disk['c_ms_step']:.3f} (bf16) ms/step; train detector {det['ms_step']:.3f} "
+          f"ms/step"
         + f" ({time.perf_counter() - t_all:.1f}s total)")
     log(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                  **{k: r[k] for k in extra if k in r},

@@ -26,17 +26,18 @@ from .models.posenet import PoseNet, PoseNetConfig
 from .models.yolo.model import YoloConfig, YoloV8
 
 
-def _leaves(tree, prefix=()):
+def _leaves(tree, prefix=(), dtype=np.float32):
     for k, v in tree.items():
         if isinstance(v, dict) or hasattr(v, "items"):
-            yield from _leaves(v, prefix + (k,))
+            yield from _leaves(v, prefix + (k,), dtype)
         else:
-            yield prefix + (k,), np.asarray(v, np.float32)
+            yield prefix + (k,), np.asarray(v, dtype)
 
 
-def _flax_to_state_dict(variables) -> dict:
+def _flax_to_state_dict(variables, dtype=np.float32) -> dict:
+    """A flax variables tree -> state_dict tensors of `dtype`."""
     sd = {}
-    for path, a in _leaves(variables["params"]):
+    for path, a in _leaves(variables["params"], dtype=dtype):
         scope, leaf = ".".join(path[:-1]), path[-1]
         if leaf == "kernel":
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
@@ -47,7 +48,7 @@ def _flax_to_state_dict(variables) -> dict:
             sd[f"{scope}.bias"] = a
         else:
             raise KeyError(f"unexpected flax param {'/'.join(path)}")
-    for path, a in _leaves(variables.get("batch_stats", {})):
+    for path, a in _leaves(variables.get("batch_stats", {}), dtype=dtype):
         scope, leaf = ".".join(path[:-1]), path[-1]
         sd[f"{scope}.running_{leaf}"] = a
         sd[f"{scope}.num_batches_tracked"] = np.zeros((), np.int64)
@@ -62,6 +63,53 @@ def posenet_from_jax(variables) -> dict:
 def yolo_from_jax(variables) -> dict:
     """A flax YoloV8 tree -> the port's YoloV8 state_dict."""
     return _flax_to_state_dict(variables)
+
+
+def _adam_state(opt_state):
+    """(mu, nu, count) of the Adam state inside an optax state tree: the
+    ScaleByAdamState namedtuple, or the dict that a checkpoint restored
+    without its structure holds in its place."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.mu, opt_state.nu, opt_state.count
+    if isinstance(opt_state, dict):
+        if "mu" in opt_state and "nu" in opt_state:
+            return opt_state["mu"], opt_state["nu"], opt_state["count"]
+        children = opt_state.values()
+    elif isinstance(opt_state, (list, tuple)):
+        children = opt_state
+    else:
+        children = ()
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def det_trainer_state_from_jax(tree) -> dict:
+    """The JAX DetectionTrainer's checkpoint tree (its _ckpt_tree(): params,
+    batch_stats, ema_params, opt_state, meta; as numpy, e.g. as orbax
+    restores it) -> the port's DetectionTrainer checkpoint tree
+    (models/yolo/train.DetectionTrainer.load_tree): parameters, BatchNorm
+    buffers, EMA parameters and Adam's moments in the state_dict layout
+    (yolo_from_jax's transposes), Adam's count, and the meta values."""
+    state = yolo_from_jax({"params": tree["params"], "batch_stats": tree["batch_stats"]})
+    params = _flax_to_state_dict({"params": tree["params"]})
+    found = _adam_state(tree["opt_state"])
+    if found is None:
+        raise KeyError("no Adam state (mu, nu, count) in the optax state")
+    mu, nu, count = found
+    meta = tree["meta"]
+    return {
+        "params": params,
+        "batch_stats": {k: v for k, v in state.items() if k not in params},
+        "ema_params": _flax_to_state_dict({"params": tree["ema_params"]}),
+        "opt_state": {"mu": _flax_to_state_dict({"params": mu}),
+                      "nu": _flax_to_state_dict({"params": nu}), "count": int(np.asarray(count))},
+        "meta": {"global_step": int(np.asarray(meta["global_step"])),
+                 "epoch": int(np.asarray(meta["epoch"])),
+                 "best_map": float(np.asarray(meta["best_map"]))},
+    }
 
 
 def quantized_from_jax(q) -> dict:

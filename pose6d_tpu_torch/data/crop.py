@@ -133,12 +133,18 @@ def _linear_taps(src: int, dst: int, clamp_weight: bool):
     return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), f
 
 
-def resize_linear(image: np.ndarray, size: int) -> np.ndarray:
-    """cv2.resize(image, (size, size), interpolation=INTER_LINEAR) for an
-    [H, W] or [H, W, C] uint8 or uint16 image."""
+def resize_linear(image: np.ndarray, size) -> np.ndarray:
+    """cv2.resize(image, (out_w, out_h), interpolation=INTER_LINEAR) for an
+    [H, W] or [H, W, C] uint8 or uint16 image; size is out_h = out_w, or
+    (out_h, out_w). At the image's own size it is a copy, as in cv2."""
+    if image.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"resize_linear takes uint8 or uint16 images, got {image.dtype}")
     h, w = image.shape[:2]
-    xi0, xi1, fx = _linear_taps(w, size, True)
-    yi0, yi1, fy = _linear_taps(h, size, False)
+    out_h, out_w = (size, size) if isinstance(size, (int, np.integer)) else size
+    if (out_h, out_w) == (h, w):
+        return image.copy()
+    xi0, xi1, fx = _linear_taps(w, out_w, True)
+    yi0, yi1, fy = _linear_taps(h, out_h, False)
     col = (1, -1) + (1,) * (image.ndim - 2)
     row = (-1,) + (1,) * (image.ndim - 1)
     one = np.float32(1.0)
@@ -153,12 +159,10 @@ def resize_linear(image: np.ndarray, size: int) -> np.ndarray:
         hz = a[:, xi0] * cx0 + a[:, xi1] * cx1
         v = ((((hz[yi0] >> 4) * cy0) >> 16) + (((hz[yi1] >> 4) * cy1) >> 16) + 2) >> 2
         return np.clip(v, 0, 255).astype(np.uint8)
-    if image.dtype == np.uint16:
-        a = image.astype(np.float32)
-        hz = a[:, xi0] * (one - fx).reshape(col) + a[:, xi1] * fx.reshape(col)
-        v = hz[yi0] * (one - fy).reshape(row) + hz[yi1] * fy.reshape(row)
-        return np.clip(np.rint(v), 0, 65535).astype(np.uint16)
-    raise TypeError(f"resize_linear takes uint8 or uint16 images, got {image.dtype}")
+    a = image.astype(np.float32)  # uint16
+    hz = a[:, xi0] * (one - fx).reshape(col) + a[:, xi1] * fx.reshape(col)
+    v = hz[yi0] * (one - fy).reshape(row) + hz[yi1] * fy.reshape(row)
+    return np.clip(np.rint(v), 0, 65535).astype(np.uint16)
 
 
 def crop_resize_image(image: np.ndarray, p: CropParams) -> np.ndarray:

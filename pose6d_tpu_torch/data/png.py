@@ -75,6 +75,15 @@ def decode_png(data: bytes, what: str = "<bytes>") -> np.ndarray:
     return img.astype(dtype.newbyteorder("="))
 
 
+def png_size(path: str) -> tuple:
+    """(width, height) of the PNG file at `path`, from its IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    return struct.unpack(">II", head[16:24])
+
+
 def read_png(path: str) -> np.ndarray:
     """The image of the PNG file at `path` (see the module docstring)."""
     with open(path, "rb") as f:

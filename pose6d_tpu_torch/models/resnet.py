@@ -25,20 +25,23 @@ BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """flax nn.BatchNorm(momentum=0.9) on [B, C] or [B, C, H, W] maps (one
-    class for the towers' 2-D and the heads' 1-D norms; the state_dict keys
-    are torch's).
+    """flax nn.BatchNorm(momentum, epsilon) on [B, C] or [B, C, H, W] maps
+    (one class for the towers' 2-D and the heads' 1-D norms, and for the
+    detector's ConvBN with momentum 0.97 and eps 1e-3; the state_dict keys
+    are torch's). `momentum` is flax's: the weight of the running value.
 
     Train mode normalizes with the biased batch variance, as torch's
-    F.batch_norm does, and updates running = 0.9 * running + 0.1 * batch
-    with the biased batch variance, as flax does (torch's own BatchNorm
-    would update with the unbiased one). num_batches_tracked stays as it
-    is: flax keeps no such count. A bf16 input (the towers under bf16
-    training) is normalized in f32 and comes out bf16, and the running
-    statistics stay f32, as flax's BatchNorm(dtype=bfloat16) does."""
+    F.batch_norm does, and updates running = momentum * running +
+    (1 - momentum) * batch with the biased batch variance, as flax does
+    (torch's own BatchNorm would update with the unbiased one).
+    num_batches_tracked stays as it is: flax keeps no such count. A bf16
+    input (the towers under bf16 training) is normalized in f32 and comes
+    out bf16, and the running statistics stay f32, as flax's
+    BatchNorm(dtype=bfloat16) does."""
 
-    def __init__(self, c: int):
-        super().__init__(c, eps=BN_EPS)
+    def __init__(self, c: int, momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
+        super().__init__(c, eps=eps)
+        self.flax_momentum = momentum
 
     def _check_input_dim(self, x):
         if x.dim() not in (2, 4):
@@ -54,8 +57,9 @@ class BatchNorm(nn.BatchNorm2d):
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             var, mean = torch.var_mean(xs, dim=(0,) if x.dim() == 2 else (0, 2, 3),
                                        correction=0)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         return y
 
 

@@ -80,17 +80,24 @@ def decode_outputs(outputs, cfg: YoloConfig, img_size: Tuple[int, int]):
     return _boxes_xyxy(ltrb, anchors[None], strides[None, :, None]), _sigmoid(cls_logits.float())
 
 
+def _at_least(x: torch.Tensor, c: float) -> torch.Tensor:
+    """jnp.maximum(x, c), gradient included: halved at x == c, as JAX's
+    (torch.clamp_min would pass all of it)."""
+    return torch.maximum(x, torch.full((), c, dtype=x.dtype, device=x.device))
+
+
 def box_iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise IoU between [..., N, 4] and [..., M, 4] xyxy boxes ->
-    [..., N, M]."""
+    [..., N, M], by the JAX package's operations (the training loss takes
+    its gradient)."""
     lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
     rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
-    wh = torch.clamp_min(rb - lt, 0.0)
+    wh = _at_least(rb - lt, 0.0)
     inter = wh[..., 0] * wh[..., 1]
-    area_a = torch.clamp_min(a[..., 2] - a[..., 0], 0.0) * torch.clamp_min(a[..., 3] - a[..., 1], 0.0)
-    area_b = torch.clamp_min(b[..., 2] - b[..., 0], 0.0) * torch.clamp_min(b[..., 3] - b[..., 1], 0.0)
+    area_a = _at_least(a[..., 2] - a[..., 0], 0.0) * _at_least(a[..., 3] - a[..., 1], 0.0)
+    area_b = _at_least(b[..., 2] - b[..., 0], 0.0) * _at_least(b[..., 3] - b[..., 1], 0.0)
     union = area_a[..., :, None] + area_b[..., None, :] - inter
-    return inter / torch.clamp_min(union, 1e-9)
+    return inter / _at_least(union, 1e-9)
 
 
 def _greedy_suppress(top_boxes, top_score, top_cls, max_det: int, iou_thresh: float,

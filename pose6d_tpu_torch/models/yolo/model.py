@@ -6,11 +6,14 @@ default as in the JAX package, bf16 where its benchmark serves."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
 from torch import nn
 
+from ..posenet import _lecun_normal_
+from ..resnet import BatchNorm
 from .modules import C2f, ConvBN, OutConv, SPPF, upsample2x
 
 
@@ -125,3 +128,29 @@ class YoloV8(nn.Module):
         feats = self.neck(*self.backbone(x))
         return [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1))
                 for b, c in self.head(feats)]
+
+
+@torch.no_grad()
+def flax_init_(model: YoloV8, seed: int) -> YoloV8:
+    """The flax detector's from-scratch initialization, in place, from a
+    torch seed (the values are not flax's, the distributions are):
+    lecun_normal for every conv kernel, zero biases, BatchNorm scale 1,
+    bias 0, running mean 0 and variance 1, and each cls{i}_out bias the
+    prior log(5 / nc / (640 / stride)^2) for rare positives (ultralytics'
+    bias_init, pose6d_tpu/models/yolo/model.py:123-131)."""
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            _lecun_normal_(m.weight, g)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+    for i, stride in enumerate(cfg.strides):
+        prior = math.log(5.0 / cfg.num_classes / (640.0 / stride) ** 2)
+        getattr(model.head, f"cls{i}_out").bias.fill_(prior)
+    return model

@@ -2,12 +2,14 @@
 
 Tensors are NCHW inside; attribute names follow the flax scopes (conv, bn,
 cv1, cv2, m{i}) so convert.py maps weights by transposes alone. BatchNorm
-uses ultralytics' eps=1e-3.
+is flax's with ultralytics' eps=1e-3 and momentum 0.03 (flax momentum
+0.97): resnet.BatchNorm, whose train mode updates the running statistics
+as flax does, with the biased batch variance.
 
 `dtype` is the compute type, as flax's `dtype=` on nn.Conv / nn.BatchNorm:
 parameters stay f32 and are cast at use, convolutions take and give dtype,
-and BatchNorm computes in f32 (its f32 statistics promote the input) and
-rounds its output to dtype.
+and BatchNorm computes in f32 at least (its statistics promote the input)
+and rounds its output to dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..resnet import BatchNorm
+
+BN_MOMENTUM = 1.0 - 0.03  # flax momentum = 1 - torch momentum
 BN_EPS = 1e-3
 
 
@@ -33,10 +38,11 @@ class ConvBN(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm(cout, momentum=BN_MOMENTUM, eps=BN_EPS)
 
     def forward(self, x):
-        y = self.bn(conv_in(self.conv, x, self.dtype).float())
+        y = conv_in(self.conv, x, self.dtype)
+        y = self.bn(y.to(torch.promote_types(y.dtype, torch.float32)))
         return F.silu(y.to(self.dtype))
 
 

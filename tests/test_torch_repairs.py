@@ -1,10 +1,13 @@
 """Repairs to the port's serving slices: a bf16 detector (YoloConfig.dtype,
 the detector computing in bf16 as flax does and _detect_best feeding it
 frames in its dtype), and every kernel wrapper launching under a device
-guard on the input's device with that device's stream."""
+guard on the input's device with that device's stream; and to the
+detector's train mode: its BatchNorm updates the running statistics as
+flax's (momentum 0.97 flax-side, the biased batch variance)."""
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +15,8 @@ import torch
 
 from pose6d_tpu.models.yolo.model import YoloConfig as JYoloConfig, YoloV8 as JYoloV8
 from pose6d_tpu_torch import _build
-from pose6d_tpu_torch.convert import init_posenet_weights, init_yolo_weights, yolo_from_jax
+from pose6d_tpu_torch.convert import (_flax_to_state_dict, init_posenet_weights,
+                                     init_yolo_weights, yolo_from_jax)
 from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
 from pose6d_tpu_torch.models.posenet import PoseNetConfig
 from pose6d_tpu_torch.models.yolo.model import YoloConfig, YoloV8
@@ -49,6 +53,37 @@ def test_bf16_yolov8n_matches_flax_bf16():
             std = ref.std()
             assert err.mean() < BF16_MEAN_REL * std and err.max() < BF16_MAX_REL * std, \
                 (err.mean() / std, err.max() / std)
+
+
+def test_yolo_train_mode_batch_stats_match_flax():
+    """One train-mode forward of YOLOv8n (width 0.25, depth 1/3) from the
+    same variables in float64 on both sides: every running mean and
+    variance the port leaves equals flax's apply(train=True,
+    mutable=["batch_stats"]) within 1e-6 relative (per leaf, of its largest
+    magnitude). torch's own BatchNorm2d (momentum 0.1 torch-side, the
+    unbiased variance) misses by orders of magnitude more."""
+    S = 64
+    variables = random_flax_variables(JYoloV8(JYoloConfig(num_classes=2)), jnp.zeros((1, S, S, 3)),
+                                      seed=2)
+    x = np.random.default_rng(1).uniform(0, 1, (3, S, S, 3))
+    with jax.enable_x64(True):
+        f64 = lambda t: jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)  # noqa: E731
+        jmodel = JYoloV8(JYoloConfig(num_classes=2, dtype=jnp.float64))
+        _, upd = jax.jit(lambda v, im: jmodel.apply(v, im, train=True, mutable=["batch_stats"]))(
+            f64(variables), jnp.asarray(x))
+    want = _flax_to_state_dict({"params": {}, "batch_stats": jax.tree.map(
+        np.asarray, upd["batch_stats"])}, dtype=np.float64)
+    stats = {k: v.numpy() for k, v in want.items() if "running_" in k}
+    model = YoloV8(YoloConfig(num_classes=2, dtype=torch.float64))
+    model.load_state_dict(yolo_from_jax(variables), strict=True)
+    model = model.double().train()
+    with torch.no_grad():
+        model(torch.from_numpy(x))
+    got = model.state_dict()
+    assert len(stats) == sum(1 for k in got if "running_" in k) == 2 * 57
+    for k, w in stats.items():
+        err = float(np.abs(got[k].numpy() - w).max())
+        assert err <= 1e-6 * float(np.abs(w).max()), f"{k}: max err {err:.3g}"
 
 
 def test_pipeline_feeds_the_detector_its_dtype():

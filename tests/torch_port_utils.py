@@ -632,3 +632,32 @@ def bf16_step_errors(variant: str, seed: int = 0, batch_size: int = BF16_BATCH):
                                   / ref["stats"][k].abs().max()) for k in stat_keys),
         }
     return out
+
+
+# ------------------------------------------------------- detector training
+
+def jax_draws(key, batch: int, cfg) -> dict:
+    """The draws of JAX's make_det_train_step for `key`, in the port's
+    layout: the per-image keys split as the step splits them, each uniform
+    drawn as hsv_augment / flip_augment / affine_augment draw it."""
+    import jax
+    import torch
+
+    k_hsv, k_flip, k_aff = jax.random.split(key, 3)
+    u = jax.random.uniform
+    hsv, flip, aff = [], [], []
+    for k in jax.random.split(k_hsv, batch):
+        kh, ks, kv = jax.random.split(k, 3)
+        hsv.append([u(kh, (), minval=-cfg.hsv_h, maxval=cfg.hsv_h),
+                    1.0 + u(ks, (), minval=-cfg.hsv_s, maxval=cfg.hsv_s),
+                    1.0 + u(kv, (), minval=-cfg.hsv_v, maxval=cfg.hsv_v)])
+    for k in jax.random.split(k_flip, batch):
+        flip.append(u(k, ()) < cfg.flip_p)
+    t = cfg.affine_translate
+    for k in jax.random.split(k_aff, batch):
+        ks, ktx, kty = jax.random.split(k, 3)
+        aff.append([u(ks, (), minval=1.0 - cfg.affine_scale, maxval=1.0 + cfg.affine_scale),
+                    u(ktx, (), minval=0.5 - t, maxval=0.5 + t),
+                    u(kty, (), minval=0.5 - t, maxval=0.5 + t)])
+    as_t = lambda x: torch.from_numpy(np.asarray(x))  # noqa: E731
+    return {"hsv": as_t(hsv), "flip": as_t(flip), "affine": as_t(aff)}
