@@ -131,12 +131,28 @@ Phases, each printed on its own line with its seconds:
      for bit at step 52 on the 2-epoch schedule and running epoch 3, and
      load_yolo_variables(prefer="best") serving one request through an rgb
      PosePipeline; none of the five kernels runs (phase_train_detector);
- 13. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add and train runs, on the row of the kernel and
-     the batch they ran at (the stem and layer1 at 32 in phase 6, at 8
-     elsewhere; addmin at 8 in phase 9 and at 32 in phases 9, 10 and 11; the
-     gather at 32 in phases 10 and 11); a launch at a batch with no row
-     fails the run. The int8 convolution is
+ 13. the workflow through the CLIs: the README's steps as the port's
+     command lines (python -m pose6d_tpu_torch.cli.<name>, run in this
+     process on their default device, the card; generator seeds SEED +
+     14..16): setup_data --synthetic (13 folders x 80 frames, 640x480),
+     reference-layout files from a seed (a PoseNetRGBDGeometric .pth, a
+     torchvision resnet50, an ultralytics YOLOv8n) read back bit-equal,
+     convert_reference_weights to-port bit-equal to the seeded weights,
+     train_yolo (1 epoch, no kernel), train rgbd_geometric
+     --pretrained-backbone (the train split resident; the tower equal to the
+     torchvision dict before step 1; gather and addmin at batch 32), infer
+     (the overlay's box drawn, the pose equal to the pipeline's in this
+     process; once more as a subprocess) and eval_e2e through the stem and
+     stage 1-4 kernels on the whole val split in 13 batches of 8 (addmin at
+     8), its detection rate and ADD-0.1d equal to PosePipeline +
+     ADDEvaluator's (phase_cli); each CLI's wall seconds and eval_e2e's
+     frames/s over its batches;
+ 14. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice, add, train and CLI runs, on the row of the kernel
+     and the batch they ran at (the stem and layer1 at 32 in phase 6, at 8
+     elsewhere; addmin at 8 in phases 9 and 13 and at 32 in phases 9, 10,
+     11 and 13; the gather at 32 in phases 10, 11 and 13; stages 3-4 at 8
+     in phase 13 only); a launch at a batch with no row fails the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
 
@@ -1140,42 +1156,6 @@ METRICS_HEADER = ["epoch", "train_loss", "val_add", "val_add_s", "val_acc", "val
                   "lr", "steps_per_sec", "imgs_per_sec"]  # the JAX Trainer's metrics.csv
 
 
-def encode_png(img: np.ndarray) -> bytes:
-    """A PNG of an [H, W, 3] uint8 (8-bit RGB) or [H, W] uint16 (16-bit grey,
-    big-endian) image; row y uses filter type y % 5, so every one of the
-    five filters occurs; zlib level 1."""
-    import zlib
-
-    h, w = img.shape[:2]
-    if img.dtype == np.uint8:
-        color, depth, bpp = 2, 8, 3
-        rows = img.reshape(h, w * 3).astype(np.int16)
-    else:
-        color, depth, bpp = 0, 16, 2
-        rows = img.astype(">u2").view(np.uint8).reshape(h, w * 2).astype(np.int16)
-    left = np.zeros_like(rows)
-    left[:, bpp:] = rows[:, :-bpp]
-    up = np.zeros_like(rows)
-    up[1:] = rows[:-1]
-    upleft = np.zeros_like(rows)
-    upleft[1:, bpp:] = rows[:-1, :-bpp]
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    filtered = np.stack([rows, rows - left, rows - up, rows - ((left + up) >> 1), rows - paeth])
-    ftype = np.arange(h) % 5
-    data = np.concatenate([ftype[:, None], filtered[ftype, np.arange(h)] & 0xFF], 1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (len(body).to_bytes(4, "big") + kind + body
-                + zlib.crc32(body, zlib.crc32(kind)).to_bytes(4, "big"))
-
-    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([depth, color, 0, 0, 0])
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(data.astype(np.uint8).tobytes(), 1))
-            + chunk(b"IEND", b""))
-
-
 def seeded_frame(rng, bbox, z_mm: float, color):
     """A smooth seeded RGB frame (32 px blocks plus a gradient) with the
     object's box filled in its colour, and uint16 depth in mm inside the
@@ -1204,7 +1184,7 @@ def write_linemod_tree(root: str, rng, objects: dict = DISK_OBJECTS, frames: int
     decode times (ms per frame)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from pose6d_tpu_torch.data.png import read_png
+    from pose6d_tpu_torch.data.png import encode_png, read_png
 
     data, models = os.path.join(root, "data"), os.path.join(root, "models")
     os.makedirs(models, exist_ok=True)
@@ -1805,6 +1785,276 @@ def phase_train_detector(rng, smi: str):
     return out
 
 
+# the workflow's tree: 13 folders x 80 frames (LineMOD has ~1,200 a folder),
+# each 64 train, 8 val (i % 10 == 8), 8 test: the val split is 13 batches of BATCH
+CLI_OBJECTS, CLI_FRAMES = 13, 80
+
+
+def run_cli(name: str, argv: list) -> tuple[str, float]:
+    """python -m pose6d_tpu_torch.cli.<name> argv, in this process (so that
+    the launch counts see it): its stdout (echoed) and wall seconds. A
+    SystemExit with a code other than 0 fails the run."""
+    import contextlib
+    import io
+    import runpy
+
+    buf, old, t0 = io.StringIO(), sys.argv, time.perf_counter()
+    sys.argv = [name] + [str(a) for a in argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(f"pose6d_tpu_torch.cli.{name}", run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise CheckFailed(f"cli.{name} exited with {e.code!r}: {buf.getvalue()[-2000:]}")
+    finally:
+        sys.argv = old
+    secs = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"    {name}: {line}")
+    return buf.getvalue(), secs
+
+
+def _printed(pattern: str, text: str) -> str:
+    m = re.search(pattern, text)
+    check(m is not None, f"no {pattern!r} in the CLI's output")
+    return m.group(1)
+
+
+def phase_cli(smi: str, device: str = "cuda"):
+    """The README's workflow through the port's CLIs, at full width: each
+    one run as `python -m pose6d_tpu_torch.cli.<name>` in this process with
+    its argv (run_cli), on the card:
+      1. setup_data --synthetic writes a tree of CLI_OBJECTS folders x
+         CLI_FRAMES 640x480 frames (data/synthetic.py, no cv2);
+      2. reference-layout files from a seed: the reference's PoseNetRGBD-
+         Geometric checkpoint (posenet_to_reference of seeded weights, under
+         'model_state_dict'), a torchvision resnet50 and an ultralytics
+         YOLOv8n (yolo_to_ultralytics, 'model.model.' keys), each read back
+         and converted to the port bit-equal;
+      3. convert_reference_weights to-port: the Trainer checkpoint it writes
+         loads (load_model_variables) bit-equal to the seeded weights;
+      4. train_yolo --epochs 1 (YOLOv8n, nc 13, 640, batch 16; no kernel),
+         then train --variant rgbd_geometric --epochs 1 --pretrained-backbone
+         <the torchvision .pth> (224, batch 32, the train split resident): the
+         tower equals the converted torchvision dict before step 1, and the
+         gather and addmin kernels launch at batch 32;
+      5. infer on one val frame (bf16): the overlay PNG decodes to the
+         frame's shape, the box colour is drawn, and the printed pose equals
+         the same PosePipeline's run in this process; the same command once
+         more as a subprocess (the module entry alone);
+      6. eval_e2e --folded-backbone --folded-pallas --folded-stem
+         --folded-stages 1,2,3,4 --batch-size 8 on the whole val split (104
+         frames, 13 batches): the stem, stages 1-4 and addmin kernels launch
+         once a batch, and the printed detection rate and ADD-0.1d equal
+         PosePipeline + ADDEvaluator's in this process, batch by batch.
+         frames/s as eval_e2e prints it: the host clock over its batches,
+         set-up (checkpoints, folding, meshes) excluded.
+    The CLIs run on their default device, the card; `device` is that of the
+    in-process pipelines they are compared with.
+    Returns {(kernel, batch): launches} and the readings."""
+    import shutil
+
+    from scipy.spatial.transform import Rotation
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.configs.presets import get_preset
+    from pose6d_tpu_torch.convert import (init_posenet_weights, init_torchvision_resnet50,
+                                          init_yolo_weights)
+    from pose6d_tpu_torch.data.linemod import build_index
+    from pose6d_tpu_torch.data.png import read_png
+    from pose6d_tpu_torch.geometry.pinhole import DEFAULT_K
+    from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
+    from pose6d_tpu_torch.losses.add import ADDEvaluator
+    from pose6d_tpu_torch.models.convert import load_torch_state_dict, resnet50_from_torchvision
+    from pose6d_tpu_torch.models.convert_posenet import posenet_to_reference
+    from pose6d_tpu_torch.models.posenet import PoseNetConfig
+    from pose6d_tpu_torch.models.yolo.convert import yolo_from_ultralytics, yolo_to_ultralytics
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+    from pose6d_tpu_torch.models.yolo.train import load_yolo_variables
+    from pose6d_tpu_torch.train import trainer as trainer_mod
+    from pose6d_tpu_torch.train.checkpoint import load_model_variables
+    from pose6d_tpu_torch.utils.viz import draw_rectangle
+
+    root = os.path.join(_build.BUILD_DIR, "smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    secs, launches = {}, collections.Counter()
+
+    def equal_states(a: dict, b: dict, what: str) -> None:
+        check(set(a) == set(b), f"{what}: keys differ: {sorted(set(a) ^ set(b))[:6]}")
+        bad = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k].cpu(), b[k].cpu())]
+        check(not bad, f"{what}: {len(bad)} tensors differ, e.g. {bad[:4]}")
+
+    try:
+        # 1. the tree
+        _, secs["setup_data"] = run_cli("setup_data", ["--dest", root, "--synthetic", "--objects",
+                                                       CLI_OBJECTS, "--frames", CLI_FRAMES])
+        data = os.path.join(root, "Linemod_synthetic", "data")
+        models = os.path.join(root, "Linemod_synthetic", "models")
+
+        # 2. reference-layout files from a seed, read back through the converters
+        variant = "rgbd_geometric"
+        seeded = init_posenet_weights(PoseNetConfig(variant=variant), SEED + 14)
+        ref_pth = os.path.join(root, "best_pose_model.pth")
+        torch.save({"model_state_dict": posenet_to_reference(variant, seeded)}, ref_pth)
+        tv = init_torchvision_resnet50(SEED + 15)
+        tv_pth = os.path.join(root, "resnet50_torchvision.pth")
+        torch.save(tv, tv_pth)
+        ycfg = YoloConfig(num_classes=CLI_OBJECTS)
+        yolo_seeded = init_yolo_weights(ycfg, SEED + 16)
+        yolo_pth = os.path.join(root, "yolov8n_ultralytics.pth")
+        torch.save({"model": {f"model.model.{k}": v
+                              for k, v in yolo_to_ultralytics(yolo_seeded, ycfg).items()}},
+                   yolo_pth)
+        equal_states(yolo_from_ultralytics(load_torch_state_dict(yolo_pth), ycfg), yolo_seeded,
+                     "ultralytics YOLOv8n round trip")
+
+        # 3. the reference checkpoint into a Trainer checkpoint
+        port_dir = os.path.join(root, "weights_reference")
+        _, secs["convert_reference_weights"] = run_cli(
+            "convert_reference_weights", ["to-port", "--variant", variant, "--pth", ref_pth,
+                                          "--dest", port_dir])
+        equal_states(load_model_variables(port_dir, get_preset(variant)), seeded,
+                     "convert_reference_weights to-port")
+
+        # 4. the training CLIs
+        yolo_dir = os.path.join(root, "yolo")
+        _build.launch_counts.clear()
+        _, secs["train_yolo"] = run_cli("train_yolo", ["--data-root", data, "--save-dir",
+                                                       yolo_dir, "--epochs", 1])
+        check(dict(_build.launch_counts) == {}, f"train_yolo launched kernels: "
+                                                f"{dict(_build.launch_counts)}")
+        towers_checked = []
+        original = trainer_mod.Trainer.train_epoch
+
+        def first_epoch_checks_towers(self, epoch, rng):
+            if not towers_checked:  # before step 1: the converted torchvision tower
+                equal_states(self.state.model.backbone.state_dict(),
+                             resnet50_from_torchvision(tv), "the pretrained tower")
+                towers_checked.append(epoch)
+            return original(self, epoch, rng)
+
+        pose_dir = os.path.join(root, f"weights_{variant}")
+        trainer_mod.Trainer.train_epoch = first_epoch_checks_towers
+        try:
+            _build.launch_counts.clear()
+            _, secs["train"] = run_cli("train", ["--variant", variant, "--data-root", data,
+                                                 "--mesh-dir", models, "--save-dir", pose_dir,
+                                                 "--epochs", 1,
+                                                 "--pretrained-backbone", tv_pth])
+            train_counts = dict(_build.launch_counts)
+        finally:
+            trainer_mod.Trainer.train_epoch = original
+        check(towers_checked == [0], "train: the tower check did not run before epoch 1")
+        check(set(train_counts) == {"gather_rows_u32", "pairwise_min_dist"}
+              and min(train_counts.values()) > 0,
+              f"train: the gather and addmin kernels, got {train_counts}")
+        for k, v in train_counts.items():
+            launches[(k, 32)] += v
+        log(f"  train launches (batch 32): {train_counts}")
+
+        # 5. infer on one val frame, in process and as a subprocess
+        image = os.path.join(data, "01", "rgb", "0008.png")
+        depth = os.path.join(data, "01", "depth", "0008.png")
+        overlay = os.path.join(root, "overlay.png")
+        infer_args = ["--variant", variant, "--image", image, "--depth", depth,
+                      "--yolo-weights", yolo_dir, "--pose-weights", pose_dir,
+                      "--mesh-dir", models, "--output", overlay]
+        _build.launch_counts.clear()
+        text, secs["infer"] = run_cli("infer", infer_args)
+        check(dict(_build.launch_counts) == {}, "infer (float towers) launched kernels")
+        frame = read_png(image)
+        drawn = read_png(overlay)
+        check(drawn.shape == frame.shape, f"infer's overlay {drawn.shape} vs {frame.shape}")
+        pipe = PosePipeline(PipelineConfig(variant=variant, img_size=224,
+                                           compute_dtype=torch.bfloat16), ycfg,
+                            load_yolo_variables(yolo_dir, ycfg),
+                            load_model_variables(pose_dir, get_preset(variant, img_size=224)),
+                            device=device)
+        depth_m = read_png(depth).astype(np.float32) / 1000.0
+        out = pipe(frame[None], DEFAULT_K, depth_m[None])
+        quat = out["rotation"][0].float().cpu().numpy()
+        trans = out["translation"][0].float().cpu().numpy()
+        # the detection box is drawn last, in BGR (255, 0, 0): every one of
+        # its pixels is (0, 0, 255) in the RGB file
+        x, y, w, h = out["bbox_xywh"][0].float().cpu().numpy().astype(int)
+        box = np.zeros(frame.shape[:2], np.uint8)
+        draw_rectangle(box, (x, y), (x + w, y + h), 1, 2)
+        check(box.any() and (drawn[box > 0] == np.array([0, 0, 255], np.uint8)).all(),
+              f"infer's overlay lacks the detection box [{x}, {y}, {w}, {h}]")
+        check(_printed(r"quat\(xyzw\): (.*)", text) == f"{quat}"
+              and _printed(r"trans \(m\): (.*)", text) == f"{trans}",
+              f"infer's pose differs from the pipeline's in process: {quat} {trans}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pose6d_tpu_torch.cli.infer"] + infer_args
+                           + ["--output", overlay + ".sub.png"], capture_output=True, text=True,
+                           timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs["infer (subprocess)"] = time.perf_counter() - t0
+        check(r.returncode == 0 and "saved" in r.stdout,
+              f"python -m pose6d_tpu_torch.cli.infer: exit {r.returncode}: {r.stderr[-2000:]}")
+        check(read_png(overlay + ".sub.png").shape == frame.shape, "the subprocess overlay")
+
+        # 6. eval_e2e through the fused kernels on the whole val split
+        samples = build_index(data, "val", require_depth=True)
+        n_batches = CLI_OBJECTS * CLI_FRAMES // 10 // BATCH
+        check(len(samples) == n_batches * BATCH,
+              f"the val split: {len(samples)} frames, not {n_batches} batches of {BATCH}")
+        eval_args = ["--variant", variant, "--data-root", data, "--mesh-dir", models,
+                     "--yolo-weights", yolo_dir, "--pose-weights", pose_dir,
+                     "--batch-size", BATCH, "--conf-thresh", 0.0,
+                     "--folded-backbone", "--folded-pallas", "--folded-stem",
+                     "--folded-stages", "1,2,3,4"]
+        _build.launch_counts.clear()
+        text, secs["eval_e2e"] = run_cli("eval_e2e", eval_args)
+        eval_counts = dict(_build.launch_counts)
+        want = {k: n_batches for k in ("fused_stem_c3", "fused_stage_s1", "fused_stage_s2",
+                                       "fused_stage_s3", "fused_stage_s4", "pairwise_min_dist")}
+        check(eval_counts == want, f"eval_e2e: the stem, stage 1-4 and addmin kernels once "
+                                   f"in each of {n_batches} batches, got {eval_counts}")
+        for k, v in eval_counts.items():
+            launches[(k, BATCH)] += v
+        log(f"  eval_e2e launches (batch {BATCH}): {eval_counts}")
+        fps = float(_printed(rf"evaluated {len(samples)} frames in [\d.]+ s after set-up: "
+                             r"([\d.]+) frames/s", text))
+        pipe = PosePipeline(PipelineConfig(variant=variant, img_size=224, conf_thresh=0.0,
+                                           compute_dtype=torch.bfloat16), ycfg,
+                            load_yolo_variables(yolo_dir, ycfg),
+                            load_model_variables(pose_dir, get_preset(variant, img_size=224)),
+                            PoseNetConfig(variant=variant), device=device)
+        pipe.fold_backbones(pallas_stem=True, pallas_stages=(1, 2, 3, 4))
+        evaluator = ADDEvaluator(models, device=device)
+        detected, accs = 0, []
+        for start in range(0, len(samples), BATCH):  # eval_e2e's batches and averages
+            chunk = samples[start:start + BATCH]
+            frames = np.stack([read_png(s.img_path) for s in chunk])
+            depths = np.stack([read_png(s.depth_path).astype(np.float32) / 1000.0 for s in chunk])
+            K = np.stack([s.cam_K for s in chunk]).astype(np.float32)
+            out = pipe(frames, K, depths)
+            valid = out["det_valid"].cpu().numpy()
+            ids = np.asarray([s.obj_id for s in chunk])
+            m = evaluator.eval_metrics(
+                out["rotation"], out["translation"],
+                np.asarray([Rotation.from_matrix(s.rot_mat).as_quat() for s in chunk], np.float32),
+                np.asarray([s.trans_mm / 1000.0 for s in chunk], np.float32),
+                np.where(valid, ids, -1))
+            detected += int(valid.sum())
+            accs.append(m["add_01d_acc"])
+        det_rate = detected / len(samples)
+        acc = sum(accs) / len(accs) * det_rate
+        check(_printed(r"detection rate: ([\d.]+)%", text) == f"{det_rate * 100:.1f}"
+              and _printed(r"undetected = incorrect\): ([\d.]+)%", text) == f"{acc:.2f}",
+              f"eval_e2e differs from the pipeline in process: detection {det_rate * 100:.1f}%, "
+              f"ADD-0.1d {acc:.2f}%")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("  CLI wall seconds on " + smi + ": "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"; eval_e2e {fps:.2f} frames/s by the host clock over its {n_batches} batches "
+          f"(set-up excluded)")
+    return dict(launches), {"secs": secs, "eval_fps": fps, "det_rate": float(det_rate),
+                            "add_01d": float(acc)}
+
+
 def profile_kernels(fn, what: str, unprofiled_ms: float, top: int = 10) -> None:
     """fn() once more under torch.profiler: the card's kernel time by
     kernel, its sum, and that sum over fn's unprofiled time (the busy
@@ -2215,13 +2465,25 @@ def main() -> int:
         f"{max(det['val_s']):.2f} s; card = CPU, the guard, resume exact, the trained detector "
         f"served; none of the five kernels ran ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    cli_counts, cli = phase_cli(smi)
+    for (k, batch), v in cli_counts.items():
+        count({k: v}, batch)
+    log(f"[phase 13 workflow through the CLIs] setup_data, convert_reference_weights, "
+        f"train_yolo, train, infer and eval_e2e at full width on {smi}: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in cli["secs"].items())
+        + f"; eval_e2e {cli['eval_fps']:.2f} frames/s (host clock, set-up excluded), detection "
+          f"{cli['det_rate'] * 100:.1f}%, ADD-0.1d {cli['add_01d']:.2f}% equal in process; "
+          f"launches " + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(cli_counts.items()))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
     # the b32 addmin row: phase 3's inputs and the eval step's
     r = by_id[("pairwise_min_dist", 32)]
     r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 13 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 14 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())

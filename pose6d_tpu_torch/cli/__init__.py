@@ -1,0 +1,39 @@
+"""The port's command lines, the README's workflow (counterparts of the JAX
+package's scripts/*.py), each run as `python -m pose6d_tpu_torch.cli.<name>`:
+
+  setup_data                 a LineMOD tree: --synthetic, or a local
+                             Linemod_preprocessed.zip
+  prepare_yolo               LineMOD ground truth -> the YOLO dataset layout
+  train_yolo                 train the YOLOv8n detector
+  train                      train a pose variant (--pretrained-backbone)
+  compare                    every trained variant's ADD table on a split
+  infer                      detect -> crop -> pose on one image, with an overlay PNG
+  eval_e2e                   the whole system's ADD metrics over a split
+  convert_reference_weights  the reference's PoseNet* .pth <-> a Trainer checkpoint
+  demo                       the steps above on a small synthetic tree
+
+Each takes the JAX script's arguments. Those that compute take --device,
+"cuda" by default; there is no fallback to the CPU without "--device cpu".
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+import numpy as np
+
+from .. import DEFAULT_DEVICE
+
+
+def add_device_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help=f"torch device to compute on (default {DEFAULT_DEVICE})")
+
+
+def read_depth_m(path: Optional[str], shape) -> np.ndarray:
+    """A depth PNG (uint16 mm) in metres, f32; zeros of `shape` when there is
+    no file."""
+    from ..data.png import read_depth
+
+    return read_depth(path, shape).astype(np.float32) / 1000.0

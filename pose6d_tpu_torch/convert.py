@@ -180,6 +180,26 @@ def init_posenet_weights(cfg: PoseNetConfig, seed: int) -> dict:
     return sd
 
 
+def init_torchvision_resnet50(seed: int) -> dict:
+    """A seeded state_dict in torchvision's resnet50 layout (fc included;
+    num_batches_tracked 1): the stand-in for ImageNet weights where no
+    download is possible (models/convert.resnet50_from_torchvision reads
+    it)."""
+    from .models.convert import resnet50_to_torchvision
+    from .models.resnet import ResNet50
+
+    with torch.device("meta"):
+        tower = ResNet50()
+    sd = resnet50_to_torchvision(_random_state(tower, seed))
+    rng = np.random.default_rng(seed + 1)
+    sd["fc.weight"] = torch.from_numpy(rng.normal(0.0, 0.02, (1000, 2048)).astype(np.float32))
+    sd["fc.bias"] = torch.zeros(1000)
+    for k in sd:
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.ones((), dtype=torch.int64)
+    return sd
+
+
 def init_yolo_weights(cfg: YoloConfig, seed: int) -> dict:
     """Seeded YoloV8 state_dict."""
     with torch.device("meta"):

@@ -1,4 +1,4 @@
-"""PNG reader for LineMOD's two image formats (in place of the JAX loader's
+"""PNG reader and writer for LineMOD's two image formats (in place of the JAX loader's
 cv2.imread, pose6d_tpu/data/pipeline.py:87-106; the card's machine has
 neither cv2 nor PIL).
 
@@ -10,6 +10,10 @@ The IDAT stream is inflated with zlib and its row filters undone in C++
 (data/_native.py). Interlaced, palette, alpha or other bit-depth images
 raise ValueError naming the file, as do a bad chunk CRC and a truncated
 stream. Ancillary chunks are skipped.
+
+encode_png / write_png write the same two formats (in place of the JAX
+package's cv2.imwrite): each row takes one of the five PNG filters, by
+default filter y % 5 on row y, so that every reader path is exercised.
 """
 
 from __future__ import annotations
@@ -97,3 +101,47 @@ def read_depth(path: Optional[str], shape) -> np.ndarray:
     if path is None or not os.path.exists(path):
         return np.zeros(shape, dtype=np.uint16)
     return read_png(path)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (len(body).to_bytes(4, "big") + kind + body
+            + zlib.crc32(body, zlib.crc32(kind)).to_bytes(4, "big"))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A PNG of an [H, W, 3] uint8 image (8-bit RGB, stored in that channel
+    order) or an [H, W] uint16 one (16-bit grey, big-endian), zlib level 1.
+    Row y uses filter type y % 5, so every one of the five filters occurs."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        color, depth, bpp = 2, 8, 3
+        rows = img.reshape(h, w * 3).astype(np.int16)
+    elif img.dtype == np.uint16 and img.ndim == 2:
+        color, depth, bpp = 0, 16, 2
+        rows = img.astype(">u2").view(np.uint8).reshape(h, w * 2).astype(np.int16)
+    else:
+        raise ValueError(f"encode_png: an [H, W, 3] uint8 or [H, W] uint16 image, got "
+                         f"{img.shape} {img.dtype}")
+    left = np.zeros_like(rows)
+    left[:, bpp:] = rows[:, :-bpp]
+    up = np.zeros_like(rows)
+    up[1:] = rows[:-1]
+    upleft = np.zeros_like(rows)
+    upleft[1:, bpp:] = rows[:-1, :-bpp]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    filtered = np.stack([rows, rows - left, rows - up, rows - ((left + up) >> 1), rows - paeth])
+    ftype = np.arange(h) % 5
+    data = np.concatenate([ftype[:, None], filtered[ftype, np.arange(h)] & 0xFF], 1)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(data.astype(np.uint8).tobytes(), 1))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """encode_png(img) written to `path`."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))

@@ -3,7 +3,15 @@ pose6d_tpu/geometry/pinhole.py): X = (u - cx) Z / fx, Y = (v - cy) Z / fy."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .quat import quat_to_mat
+
+# Canonical LineMOD intrinsics (reference: utils/camera.py:8-12).
+DEFAULT_K = np.array([[572.4114, 0.0, 325.2611],
+                      [0.0, 573.57043, 242.04899],
+                      [0.0, 0.0, 1.0]], dtype=np.float32)
 
 
 def pinhole_xy_from_z(z: torch.Tensor, bbox_center: torch.Tensor,
@@ -20,6 +28,28 @@ def pinhole_xy_from_z(z: torch.Tensor, bbox_center: torch.Tensor,
     x = (bbox_center[:, 0:1] - cx) * z / fx
     y = (bbox_center[:, 1:2] - cy) * z / fy
     return torch.cat([x, y, z], dim=-1)
+
+
+def project_points(points_3d: torch.Tensor, rotation: torch.Tensor,
+                   translation: torch.Tensor, camera_matrix: torch.Tensor,
+                   z_min: float = 0.001) -> torch.Tensor:
+    """Project model points [..., N, 3] to float pixels [..., N, 2].
+
+    rotation is an xyzw quaternion [..., 4] (when its rank equals
+    translation's) or a matrix [..., 3, 3]; depth is clamped at z_min."""
+    if rotation.shape[-1] == 4 and rotation.ndim == translation.ndim:
+        r_mat = quat_to_mat(rotation)
+    else:
+        r_mat = rotation
+    p_cam = torch.einsum("...ij,...nj->...ni", r_mat, points_3d) + translation[..., None, :]
+    z = p_cam[..., 2].clamp_min(z_min)
+    fx = camera_matrix[..., 0, 0]
+    fy = camera_matrix[..., 1, 1]
+    cx = camera_matrix[..., 0, 2]
+    cy = camera_matrix[..., 1, 2]
+    u = p_cam[..., 0] * fx[..., None] / z + cx[..., None]
+    v = p_cam[..., 1] * fy[..., None] / z + cy[..., None]
+    return torch.stack([u, v], dim=-1)
 
 
 def adjust_intrinsics_for_crop(camera_matrix, x1, y1, pad_l, pad_t, scale):

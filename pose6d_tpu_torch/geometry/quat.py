@@ -13,6 +13,27 @@ def quat_normalize(q: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(eps)
 
 
+def quat_canonical(q: torch.Tensor) -> torch.Tensor:
+    """Flip sign so the scalar (w, last) component is non-negative."""
+    return torch.where(q[..., 3:4] < 0, -q, q)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion conjugate (inverse for unit quaternions)."""
+    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1*q2, both in xyzw order, batched over leading axes."""
+    x1, y1, z1, w1 = q1.split(1, dim=-1)
+    x2, y2, z2, w2 = q2.split(1, dim=-1)
+    x = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2
+    y = w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2
+    z = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2
+    w = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2
+    return torch.cat([x, y, z, w], dim=-1)
+
+
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     """xyzw quaternions [..., 4] -> rotation matrices [..., 3, 3] (assumes
     approximately unit quaternions, as the reference's ADD loss does)."""
@@ -54,3 +75,11 @@ def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
     cands = torch.stack([cand_w, cand_x, cand_y, cand_z], dim=-2)  # [..., 4, 4]
     idx = choice[..., None, None].expand(*choice.shape, 1, 4)
     return quat_normalize(torch.gather(cands, -2, idx).squeeze(-2))
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v [..., 3] by unit quaternions q [..., 4] (xyzw)."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + qw * t + torch.linalg.cross(qv, t, dim=-1)

@@ -21,7 +21,9 @@ features; the float forward and the folded serving forward
 (posenet_serving.py) share it. `flax_init_` is the flax model's
 from-scratch initialization.
 
-Not ported: the space-to-depth stem (`stem_s2d`, raises).
+stem_s2d: every ResNet50 tower's stem is the space-to-depth form
+(resnet.ResNet50(stem_s2d=True)); the folded and int8 serving modes take
+7x7 stems only (ops/quant.fold_bn_resnet raises).
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ DEPTH_GUARD_MAX_M = 2.0
 class PoseNetConfig:
     variant: str = "rgb"  # rgb | rgb_geometric | rgbd | rgbd_geometric
     img_size: int = 224
-    stem_s2d: bool = False  # not ported: raises
+    # the towers' stem as a 2x2 space-to-depth + 4x4/s1 conv (resnet.py)
+    stem_s2d: bool = False
     # the geometric variants' and rgbd's rotation head becomes the rgb
     # variant's 2048/1024/512 BN stack
     rot_head_wide: bool = False
@@ -186,12 +189,10 @@ class PoseNet(nn.Module):
         v = config.variant
         if v not in VARIANTS:
             raise ValueError(f"unknown variant: {v}")
-        if config.stem_s2d:
-            raise NotImplementedError("PoseNet stem_s2d: the space-to-depth stem is not ported")
         self.config = config
         if v == "rgbd":
-            self.rgb_backbone = ResNet50(in_channels=3)
-            self.depth_backbone = ResNet50(in_channels=1)
+            self.rgb_backbone = ResNet50(in_channels=3, stem_s2d=config.stem_s2d)
+            self.depth_backbone = ResNet50(in_channels=1, stem_s2d=config.stem_s2d)
             self.rgb_norm = nn.LayerNorm(2048, eps=LN_EPS)
             self.depth_norm = nn.LayerNorm(2048, eps=LN_EPS)
             if config.fusion_attention:
@@ -204,7 +205,7 @@ class PoseNet(nn.Module):
             _add_mlp_head(self, "rot_", 1024, WIDE_HEAD if config.rot_head_wide else GELU_HEAD, 4)
             _add_mlp_head(self, "trans_", 1024, GELU_HEAD, 3)
             return
-        self.backbone = ResNet50(in_channels=3)
+        self.backbone = ResNet50(in_channels=3, stem_s2d=config.stem_s2d)
         if v == "rgb":
             _add_mlp_head(self, "rot_", 2048, WIDE_HEAD, 4)
             _add_mlp_head(self, "trans_", 2048, WIDE_HEAD, 3)

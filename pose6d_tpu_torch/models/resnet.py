@@ -92,10 +92,26 @@ class BottleneckBlock(nn.Module):
         return F.relu(y + r)
 
 
+def space_to_depth_2x2(x_nhwc: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H/2, W/2, 4C], each 2x2 pixel block's channels
+    in (dy, dx, c) order."""
+    B, H, W, C = x_nhwc.shape
+    x = x_nhwc.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H // 2, W // 2, 4 * C)
+
+
 class ResNet50(nn.Module):
-    def __init__(self, in_channels: int = 3, num_filters: int = 64):
+    """stem_s2d: the stem is a 2x2 space-to-depth, then a 4x4/s1 conv with
+    pad (2, 1) on a [64, 4C, 4, 4] kernel (models/convert.s2d_conv1_weights
+    makes it from a 7x7 one), the JAX package's stem_space_to_depth."""
+
+    def __init__(self, in_channels: int = 3, num_filters: int = 64, stem_s2d: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, num_filters, 7, 2, padding=3, bias=False)
+        self.stem_s2d = stem_s2d
+        if stem_s2d:
+            self.conv1 = nn.Conv2d(4 * in_channels, num_filters, 4, 1, bias=False)
+        else:
+            self.conv1 = nn.Conv2d(in_channels, num_filters, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(num_filters)
         cin = num_filters
         for i, n_blocks in enumerate(STAGE_SIZES):
@@ -110,9 +126,15 @@ class ResNet50(nn.Module):
             for j in range(n_blocks):
                 yield getattr(self, f"layer{i + 1}_{j}")
 
+    def stem_conv(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """conv1 of an NHWC input, NCHW out."""
+        if self.stem_s2d:
+            x = F.pad(space_to_depth_2x2(x_nhwc).permute(0, 3, 1, 2), (2, 1, 2, 1))
+            return self.conv1(x)
+        return self.conv1(x_nhwc.permute(0, 3, 1, 2))
+
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        x = x_nhwc.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.stem_conv(x_nhwc)))
         x = F.max_pool2d(x, 3, 2, padding=1)
         for blk in self.blocks():
             x = blk(x)

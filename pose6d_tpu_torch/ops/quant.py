@@ -42,7 +42,11 @@ def fold_conv_bn(conv_w: torch.Tensor, bn, eps: float):
 def fold_bn_resnet(tower: ResNet50, eps: float = 1e-5) -> Dict[str, dict]:
     """{name: {"w": f32 OIHW kernel, "b": f32 [co]}} for every conv of the
     tower; names follow the JAX package ("conv1", "layer1_0/conv1", ...,
-    "layer2_0/downsample")."""
+    "layer2_0/downsample"). A space-to-depth stem (stem_s2d) raises: the
+    folded and int8 towers run the 7x7 stem."""
+    if tower.stem_s2d:
+        raise ValueError("fold_bn_resnet: a stem_s2d tower; the folded and int8 serving "
+                         "modes take the 7x7 stem")
     out = {"conv1": fold_conv_bn(tower.conv1.weight, tower.bn1, eps)}
     for i, n_blocks in enumerate(STAGE_SIZES):
         for j in range(n_blocks):

@@ -105,13 +105,10 @@ def load_model_variables(save_dir: str, train_cfg, name: str = BEST_NAME) -> Opt
     """A trained PoseNet's state_dict (CPU tensors) from a Trainer's
     checkpoint directory: `name`, else `last`; None when neither fits a
     model of train_cfg."""
-    from ..models.posenet import PoseNet, PoseNetConfig
+    from ..models.posenet import PoseNet
+    from .loop import pose_config
 
-    model = PoseNet(PoseNetConfig(
-        variant=train_cfg.variant, img_size=train_cfg.img_size,
-        rot_head_wide=train_cfg.rot_head_wide, fusion_attention=train_cfg.fusion_attention,
-        z_from_backbone=train_cfg.z_from_backbone, z_backbone_wide=train_cfg.z_backbone_wide,
-        attn_zero_init=train_cfg.attn_zero_init))
+    model = PoseNet(pose_config(train_cfg))
     mgr = CheckpointManager(save_dir)
     payload = mgr.load(model, name)
     if payload is None and name != LAST_NAME:

@@ -229,19 +229,30 @@ def model_inputs(variant: str, batch: Dict[str, torch.Tensor], rgb: torch.Tensor
     return kwargs
 
 
+def pose_config(cfg: TrainConfig) -> PoseNetConfig:
+    """The PoseNetConfig of a TrainConfig's variant and flags."""
+    return PoseNetConfig(
+        variant=cfg.variant, img_size=cfg.img_size, rot_head_wide=cfg.rot_head_wide,
+        fusion_attention=cfg.fusion_attention, z_from_backbone=cfg.z_from_backbone,
+        z_backbone_wide=cfg.z_backbone_wide, attn_zero_init=cfg.attn_zero_init)
+
+
 def create_train_state(cfg: TrainConfig, seed: int = 0, model: Optional[PoseNet] = None,
-                       device=DEFAULT_DEVICE) -> TrainState:
+                       device=DEFAULT_DEVICE, pretrained_backbone=None) -> TrainState:
     """The module, initialized from scratch by the flax rules from `seed`
     (posenet.flax_init_), or `model` as given (e.g. weights carried from a
     flax tree by convert.posenet_from_jax), moved to `device`, with a fresh
-    optimizer."""
+    optimizer. pretrained_backbone (a torchvision resnet50 .pth path or
+    state_dict) loads the towers of the from-scratch model
+    (models/pretrained.py)."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
-    if model is None:
-        model = flax_init_(PoseNet(PoseNetConfig(
-            variant=cfg.variant, img_size=cfg.img_size, rot_head_wide=cfg.rot_head_wide,
-            fusion_attention=cfg.fusion_attention, z_from_backbone=cfg.z_from_backbone,
-            z_backbone_wide=cfg.z_backbone_wide, attn_zero_init=cfg.attn_zero_init)), seed)
+    if model is None and pretrained_backbone is not None:
+        from ..models.pretrained import init_posenet_with_pretrained
+
+        model = init_posenet_with_pretrained(pose_config(cfg), seed, pretrained_backbone)
+    elif model is None:
+        model = flax_init_(PoseNet(pose_config(cfg)), seed)
     model = model.to(device)
     return TrainState(model=model, tx=make_optimizer(cfg, model.parameters()))
 

@@ -25,10 +25,11 @@ come from a torch.Generator on the device seeded with seed * 100003 +
 epoch, where JAX derives its key; the numpy generator of the shuffle and
 the jitter is JAX's, drawn in JAX's order.
 
-Not ported (ROADMAP A5): `mesh=` (data and head parallelism,
-parallel/mesh.py) and `pretrained_backbone=` (ImageNet towers,
-models/pretrained.py) raise NotImplementedError. TensorBoard summaries,
-optional in JAX, are left out: the CSV is always written.
+pretrained_backbone= (a torchvision resnet50 .pth) loads the towers before
+the first step (models/pretrained.py), as JAX's create_train_state does.
+Not ported yet (ROADMAP A5, the next slice): `mesh=` (data and head
+parallelism, parallel/mesh.py) raises NotImplementedError. TensorBoard
+summaries, optional in JAX, are left out: the CSV is always written.
 """
 
 from __future__ import annotations
@@ -62,10 +63,7 @@ class Trainer:
                  mesh=None, device_preprocess: bool = False, device=DEFAULT_DEVICE):
         if mesh is not None:
             raise NotImplementedError("Trainer mesh=: data / head parallelism "
-                                      "(parallel/mesh.py) is not ported (ROADMAP A5)")
-        if pretrained_backbone is not None:
-            raise NotImplementedError("Trainer pretrained_backbone=: ImageNet tower weights "
-                                      "(models/pretrained.py) are not ported (ROADMAP A5)")
+                                      "(parallel/mesh.py) is the next slice (ROADMAP A5)")
         self.cfg = cfg
         self.seed = seed
         self.profile_dir = profile_dir
@@ -86,7 +84,8 @@ class Trainer:
                   f"({self.frame_store.nbytes() / 2**20:.1f} MiB on {self.device})")
 
         self.evaluator = ADDEvaluator(mesh_dir, device=self.device)
-        self.state = create_train_state(cfg, seed=seed, device=self.device)
+        self.state = create_train_state(cfg, seed=seed, device=self.device,
+                                        pretrained_backbone=pretrained_backbone)
         if device_preprocess:
             self.train_step = None
             self.train_epoch_fn = make_train_epoch(

@@ -1,8 +1,10 @@
 """pose6d_tpu_torch imports nothing of JAX, flax, optax, orbax,
-torchvision, cv2, PyYAML, PIL or the JAX package: every submodule imports
-in a fresh interpreter in which those names are blocked (the card's machine
-has none of them installed), the detector-training modules among them, and
-the LineMOD loader, the parser and the detector trainer also run there."""
+torchvision, ultralytics, cv2, PyYAML, PIL or the JAX package: every
+submodule imports in a fresh interpreter in which those names are blocked
+(the card's machine has none of them installed), the detector-training
+modules, the converters, the generator, utils and every CLI among them;
+the LineMOD loader, the parser, the detector trainer and the synthetic
+generator's CLI also run there."""
 
 import os
 import pkgutil
@@ -12,11 +14,17 @@ import sys
 import pose6d_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "torchvision", "cv2", "yaml", "PIL",
-           "pose6d_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "torchvision", "ultralytics", "cv2", "yaml",
+           "PIL", "pose6d_tpu")
 # the detector-training slice, named so that a rename cannot drop it from the probe
 DETECTOR_MODULES = ("pose6d_tpu_torch.models.yolo.loss", "pose6d_tpu_torch.models.yolo.train",
                     "pose6d_tpu_torch.data.detection")
+# the interop, generator, utils and CLI slice, named for the same reason
+WORKFLOW_MODULES = tuple(f"pose6d_tpu_torch.{m}" for m in (
+    "models.convert", "models.convert_posenet", "models.yolo.convert", "models.pretrained",
+    "data.synthetic", "data.raster", "utils", "utils.camera", "utils.mesh", "utils.viz", "cli",
+    "cli.setup_data", "cli.prepare_yolo", "cli.train_yolo", "cli.train", "cli.compare",
+    "cli.infer", "cli.eval_e2e", "cli.convert_reference_weights", "cli.demo"))
 
 _PROBE = """
 import importlib, importlib.abc, sys
@@ -45,7 +53,7 @@ def _modules():
 
 def test_port_imports_without_jax():
     modules = _modules()
-    assert len(modules) > 15 and set(DETECTOR_MODULES) <= set(modules)
+    assert len(modules) > 15 and set(DETECTOR_MODULES + WORKFLOW_MODULES) <= set(modules)
     code = _PROBE.format(blocked=BLOCKED, modules=modules)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                        text=True, timeout=120)
@@ -121,3 +129,23 @@ def test_detector_trainer_runs_without_jax_cv2_yaml_or_pil(tmp_path):
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "fit 2 True" in r.stdout
+
+
+_SETUP_RUN = """
+import runpy
+sys.argv = ["setup_data", "--dest", {dest!r}, "--synthetic", "--objects", "1", "--frames", "2"]
+runpy.run_module("pose6d_tpu_torch.cli.setup_data", run_name="__main__")
+from pose6d_tpu_torch.data.png import read_png
+print("frame", read_png({dest!r} + "/Linemod_synthetic/data/01/rgb/0001.png").shape)
+"""
+
+
+def test_synthetic_generator_cli_runs_without_cv2(tmp_path):
+    """`python -m pose6d_tpu_torch.cli.setup_data --synthetic` writes a tree
+    with cv2, yaml, PIL and JAX blocked."""
+    code = _PROBE.format(blocked=BLOCKED, modules=[]).replace("import chip_smoke\n", "")
+    code += _SETUP_RUN.format(dest=str(tmp_path))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "frame (480, 640, 3)" in r.stdout

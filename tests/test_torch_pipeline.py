@@ -90,9 +90,12 @@ def test_pipeline_refuses_what_is_not_ported(pipelines, request_data):
         tpipe.fold_backbones(pallas_stages=(2,))
     yolo_cfg = YoloConfig(num_classes=2, width=0.125)
     yolo_state = init_yolo_weights(yolo_cfg, 1)
-    with pytest.raises(NotImplementedError):  # the space-to-depth stem
-        PosePipeline(PipelineConfig(variant="rgb"), yolo_cfg, yolo_state, {},
-                     PoseNetConfig(variant="rgb", stem_s2d=True), device="cpu")
+    # the space-to-depth stem serves float towers; folding it raises
+    s2d_cfg = PoseNetConfig(variant="rgb", img_size=IMG, stem_s2d=True)
+    s2d = PosePipeline(PipelineConfig(variant="rgb", img_size=IMG), yolo_cfg, yolo_state,
+                       init_posenet_weights(s2d_cfg, 3), s2d_cfg, device="cpu")
+    with pytest.raises(ValueError, match="stem_s2d"):
+        s2d.fold_backbones()
     # rgb_geometric's folded bf16 serving: the JAX package raises there too
     pose_cfg = PoseNetConfig(variant="rgb_geometric", img_size=IMG)
     geo = PosePipeline(PipelineConfig(variant="rgb_geometric", img_size=IMG, conf_thresh=0.0,

@@ -96,8 +96,8 @@ def test_fused_prefix_hooks_match_jax_at_224():
 
 @pytest.mark.parametrize("variant", ["rgb", "rgb_geometric", "rgbd", "rgbd_geometric"])
 def test_seeded_weights_load_and_other_variants_raise(variant):
-    """Seeded weights load strictly for every variant; what is not ported
-    (the space-to-depth stem) raises."""
+    """Seeded weights load strictly for every variant; the space-to-depth
+    stem builds, and folding it for serving raises."""
     cfg = PoseNetConfig(variant=variant)
     sd = init_posenet_weights(cfg, 0)
     PoseNet(cfg).load_state_dict(sd, strict=True)
@@ -109,5 +109,9 @@ def test_seeded_weights_load_and_other_variants_raise(variant):
         variant, ("trans_out.bias", 2))
     if z_bias is not None:  # the learned z starts at 0.5 m
         assert float(sd[z_bias[0]][z_bias[1]]) == 0.5
-    with pytest.raises(NotImplementedError):
-        PoseNet(PoseNetConfig(variant=variant, stem_s2d=True))
+    # the space-to-depth stem builds (tests/test_torch_convert_resnet.py
+    # holds it to JAX); the folded serving towers take the 7x7 stem only
+    s2d = PoseNet(PoseNetConfig(variant=variant, stem_s2d=True))
+    assert s2d.state_dict()[f"{tower}.conv1.weight"].shape == (64, 12, 4, 4)
+    with pytest.raises(ValueError, match="stem_s2d"):
+        fold_bn_resnet(getattr(s2d, tower))

@@ -7,7 +7,7 @@ accuracies equal, the loss within 1e-5); a 1-epoch fit on both input
 paths writes metrics.csv under the JAX header and the three checkpoints;
 resume restores epoch, best values, scheduler, model and optimizer state
 exactly, falls back to `best` when `last` is unreadable; early_stop_acc,
-profile_dir, and the options that are not ported raise."""
+profile_dir, mesh= (not ported) and a missing pretrained_backbone raise."""
 
 import csv
 import os
@@ -173,6 +173,10 @@ def test_resume_falls_back_to_best_and_profiles(trees, workdir):
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"pretrained_backbone": "r50.pth"}])
 def test_unported_options_raise(trees, workdir, kw):
-    with pytest.raises(NotImplementedError, match="A5"):
+    """mesh= is the next slice (ROADMAP A5) and raises NotImplementedError;
+    pretrained_backbone= is ported (tests/test_torch_pretrained.py) and
+    raises only for a file that is not there."""
+    err = (NotImplementedError, "A5") if "mesh" in kw else (FileNotFoundError, "r50.pth")
+    with pytest.raises(err[0], match=err[1]):
         Trainer(get_preset("rgb", img_size=S), trees["fit"]["data"], trees["fit"]["models"],
-                str(workdir), device="cpu", **kw)
+                str(workdir / "save"), device="cpu", **kw)
