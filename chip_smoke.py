@@ -8,7 +8,7 @@ checkpoint, no network); it exits non-zero without a card or the package.
 Phases, each printed on its own line with its seconds:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the CUDA kernels (csrc/*.cu) with one nvcc call into
+  2. build: the CUDA kernels (csrc/*.cu), one nvcc per source in parallel, into
      pose6d_tpu_torch/_build/; prints ptxas's registers and spills of the
      stage and bf16 stem kernels (-Xptxas -v) and the count of tensor-core
      HGMMA instructions in each bf16 stage and stem kernel (cuobjdump
@@ -147,12 +147,33 @@ Phases, each printed on its own line with its seconds:
      8), its detection rate and ADD-0.1d equal to PosePipeline +
      ADDEvaluator's (phase_cli); each CLI's wall seconds and eval_e2e's
      frames/s over its batches;
- 14. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add, train and CLI runs, on the row of the kernel
-     and the batch they ran at (the stem and layer1 at 32 in phase 6, at 8
-     elsewhere; addmin at 8 in phases 9 and 13 and at 32 in phases 9, 10,
-     11 and 13; the gather at 32 in phases 10, 11 and 13; stages 3-4 at 8
-     in phase 13 only); a launch at a batch with no row fails the run. The int8 convolution is
+ 14. mesh: data and head parallelism (pose6d_tpu_torch/parallel/) on the
+     one card (phase_mesh, generator SEED + 18): (a) a world of one over
+     NCCL, mesh (1, 1): a 2-step rgbd make_train_epoch on phase 10's store
+     and phase 4's folded rgbd pipeline sharded on it, each bit-equal to the
+     same run without a mesh; (b) two ranks spawned on cuda:0 over gloo
+     (NCCL refuses two ranks on one card), at full width: the (2, 1) rgbd
+     step at global batch 64 (32 a rank) and the (1, 2) step at 32, each in
+     float64 and in f32 against the one-process step made here first (the
+     float64 loss and gradient within STEP_F64_RTOL; the f32 loss within
+     STEP_LOSS_RTOL and each f32 leaf as close to the float64 step as the
+     one-process f32 step's, hold_step), the replicas equal bit for bit,
+     an eval batch each; the folded rgbd pipeline
+     (stem and layer1 kernels) sharded on (2, 1) over 16 frames and on
+     (1, 2) over 8, boxes equal and poses within POSE_ATOL of the unsharded
+     one at 8 frames a call; Trainer(get_preset("rgbd", batch_size=64),
+     mesh=(2, 1)).fit(epochs=1) on a seeded tree of phase 11's writer (80
+     frames a folder) and a second Trainer resuming it bit for bit; every
+     rank must launch the gather and addmin at 32 and the stem and layer1
+     at 8; prints the gloo steps' ms beside the one-process steps' (CUDA
+     events) as smoke readings;
+ 15. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice, add, train, CLI and mesh runs, on the row of the
+     kernel and the batch they ran at (the stem and layer1 at 32 in phase
+     6, at 8 elsewhere; addmin at 8 in phases 9 and 13 and at 32 in phases
+     9, 10, 11, 13 and 14; the gather at 32 in phases 10, 11, 13 and 14;
+     stages 3-4 at 8 in phase 13 only); a launch at a batch with no row
+     fails the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
 
@@ -166,6 +187,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
@@ -972,14 +994,10 @@ def phase_add(out, rng):
     return launches, n
 
 
-def seeded_split(rng, device):
-    """The train phase's split on the card: TRAIN_FRAMES seeded uint8 RGB
-    frames and uint16 depth maps (mm, 5 % invalid) at 640x480 with seeded
-    boxes, rotations, translations, object ids and LineMOD intrinsics, in
-    the port's DeviceFrameStore (host-packed 32-bit words)."""
-    from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
-
-    n = TRAIN_FRAMES
+def seeded_split_arrays(rng, n: int = TRAIN_FRAMES) -> tuple:
+    """n seeded uint8 RGB frames and uint16 depth maps (mm, 5 % invalid) at
+    640x480 with seeded boxes, rotations, translations, object ids and
+    LineMOD intrinsics: DeviceFrameStore's arguments, as numpy."""
     rgb = rng.integers(0, 256, (n, FRAME_H, FRAME_W, 3), dtype=np.uint8)
     depth = rng.integers(300, 1500, (n, FRAME_H, FRAME_W), dtype=np.uint16)
     depth[rng.random(depth.shape) < 0.05] = 0
@@ -993,9 +1011,17 @@ def seeded_split(rng, device):
                    -2)
     trans_mm = np.stack([rng.uniform(-100, 100, n), rng.uniform(-100, 100, n),
                          rng.uniform(600, 1000, n)], -1)
-    return DeviceFrameStore(rgb, depth, np.concatenate([xy, wh], -1), rot, trans_mm,
-                            rng.integers(0, 13, n), np.repeat(LINEMOD_K[None], n, 0),
-                            img_size=224, flavor="rgbd", device=device)
+    return (rgb, depth, np.concatenate([xy, wh], -1), rot, trans_mm, rng.integers(0, 13, n),
+            np.repeat(LINEMOD_K[None], n, 0))
+
+
+def seeded_split(rng, device, n: int = TRAIN_FRAMES):
+    """The train phase's split on the card (seeded_split_arrays) in the
+    port's DeviceFrameStore (host-packed 32-bit words)."""
+    from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
+
+    return DeviceFrameStore(*seeded_split_arrays(rng, n), img_size=224, flavor="rgbd",
+                            device=device)
 
 
 @contextlib.contextmanager
@@ -2257,6 +2283,421 @@ def int8_times(pipe, towers, canvas) -> list:
     return rows
 
 
+# ------------------------------------------------- data and head parallelism
+
+MESH_TRAIN_BATCH = 64   # the (2, 1) step's global batch: 32 a rank, the gather's and addmin's row
+MESH_SERVE_FRAMES = 16  # the (2, 1) request: 8 frames a rank, the stem's and layer1's row
+MESH_STORE_FRAMES = 64  # the gloo ranks' resident split (640x480)
+MESH_TREE_FRAMES = 40   # frames per folder of the mesh Trainer's tree: 32 train, 4 val, 4 test
+MESH_NCCL_STEPS = 2     # steps of the NCCL world-of-1 epoch, at batch 32
+STEP_F64_RTOL = 1e-10   # mesh vs one-process step in float64: the loss, each gradient leaf
+STEP_GRAD_RTOL = 1e-4   # f32: each gradient leaf's rel L2 from the float64 step, or ...
+STEP_NOISE_X = 1.5      # ... this many times the one-process f32 step's own, where larger
+                        # (mesh / one-process read 1.00 on the worst leaves, H100 80GB HBM3)
+STEP_LOSS_RTOL = 1e-5   # f32: the loss, mesh vs one-process
+
+
+def tensors_digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_step(store, meta, batch: int, mesh, device, dtype=torch.float32, timed: bool = False):
+    """One rgbd train step (TrainConfig's defaults, `batch` global, dropout
+    and augmentation on) from the seeded init of phase 10, the module in
+    `dtype`, on the resident `store`, on `mesh` or without one. Returns
+    (state, metrics, gradients as the optimizer saw them, ms of a second
+    step by CUDA events when `timed`, else None)."""
+    from pose6d_tpu_torch.parallel import shard_state
+    from pose6d_tpu_torch.train import loop as tl
+
+    cfg = tl.TrainConfig(variant="rgbd", batch_size=batch)
+    state = tl.create_train_state(cfg, seed=SEED + 7, device=device)
+    state.model.to(dtype)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+    step = tl.make_train_step(cfg, device_preprocess=True, frame_hw=(store.frame_h, store.frame_w),
+                              mesh=mesh)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    state, metrics = step(state, store.rgb_frames, store.depth_frames, meta, g)
+    grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    ms = None
+    if timed:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, store.rgb_frames, store.depth_frames, meta, g)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+    return state, {k: float(v) for k, v in metrics.items()}, grads, ms
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """{leaf: relative L2 error of got's gradient against want's}; a leaf
+    that is zero in want (a residual branch behind a zero-initialized BN
+    scale) reads |got| relative to the whole gradient's norm."""
+    total = sum(w.double().norm().item() ** 2 for w in want.values()) ** 0.5
+    out = {}
+    for k, w in want.items():
+        d = (got[k].double().cpu() - w.double()).norm().item()
+        n = w.double().norm().item()
+        out[k] = d / n if n else d / total
+    return out
+
+
+def hold_step(ref: dict, got: dict) -> dict:
+    """A mesh step's gathered gradients and losses (got: {"f32", "f64"},
+    each {"loss", "grads"}) against the one-process steps' (ref, CPU
+    copies): in float64 the loss and every leaf within STEP_F64_RTOL; in
+    f32 the loss within STEP_LOSS_RTOL, and every leaf within STEP_GRAD_RTOL
+    of the float64 step or within STEP_NOISE_X times the one-process f32
+    step's own distance from it, where that is larger (a leaf summed over
+    millions of cancelling terms, the stems' weights, strays ~1e-3 in f32
+    whatever the order). Returns the worst float64 error and the worst f32
+    leaf's (its error, the one-process f32 error)."""
+    r64, g64 = ref["f64"], got["f64"]
+    check(set(g64["grads"]) == set(r64["grads"]), "the mesh step's leaves are not the one-process ones")
+    check(abs(g64["loss"] - r64["loss"]) <= STEP_F64_RTOL * abs(r64["loss"]),
+          f"float64 mesh step loss {g64['loss']} vs one-process {r64['loss']}")
+    e64 = leaf_errors(g64["grads"], r64["grads"])
+    worst64 = max(e64.items(), key=lambda kv: kv[1])
+    check(worst64[1] <= STEP_F64_RTOL, f"float64 mesh step gradient {worst64[0]}: rel L2 err "
+                                       f"{worst64[1]:.3g}")
+    r32, g32 = ref["f32"], got["f32"]
+    check(abs(g32["loss"] - r32["loss"]) <= STEP_LOSS_RTOL * abs(r32["loss"]),
+          f"f32 mesh step loss {g32['loss']} vs one-process {r32['loss']}")
+    mesh_err = leaf_errors(g32["grads"], r64["grads"])
+    one_err = leaf_errors(r32["grads"], r64["grads"])
+    top = sorted(mesh_err, key=lambda k: -mesh_err[k])[:4]
+    log("    f32 leaves farthest from the float64 step (mesh / one-process): "
+        + ", ".join(f"{k} {mesh_err[k]:.3g} / {one_err[k]:.3g}" for k in top))
+    over = [k for k in mesh_err if mesh_err[k] > STEP_GRAD_RTOL]
+    if over:
+        k = max(over, key=lambda k: mesh_err[k] / one_err[k] if one_err[k] else float("inf"))
+        log(f"    of the {len(over)} f32 leaves above {STEP_GRAD_RTOL:g}, the largest ratio "
+            f"mesh / one-process: {k} {mesh_err[k]:.3g} / {one_err[k]:.3g}")
+    for k, err in mesh_err.items():
+        bound = max(STEP_GRAD_RTOL, STEP_NOISE_X * one_err[k])
+        check(err <= bound, f"f32 mesh step gradient {k}: rel L2 err {err:.3g} from the float64 "
+                            f"step, one-process f32 {one_err[k]:.3g}")
+    return {"f64": worst64[1], "f32": (mesh_err[top[0]], one_err[top[0]])}
+
+
+def eval_batch(store, meta, dev) -> dict:
+    """A global metadata batch expanded through the gather kernel 32 rows
+    at a time (the gather's row) into the global batch the eval step
+    takes, every row valid."""
+    from pose6d_tpu_torch.train import loop as tl
+
+    meta = tl.to_device(meta, dev)
+    n = len(meta["idx"])
+    parts = [tl.expand_device_batch(store.rgb_frames, store.depth_frames,
+                                    {k: v[i:i + 32] for k, v in meta.items()}, 224,
+                                    (store.frame_h, store.frame_w)) for i in range(0, n, 32)]
+    batch = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    batch["valid"] = torch.ones(n, dtype=torch.bool, device=dev)
+    return batch
+
+
+def mesh_rank(rank: int, job: dict) -> None:
+    """One of the two gloo ranks on cuda:0 (phase_mesh): the (2, 1) and
+    (1, 2) rgbd train steps against the one-process steps, each with an
+    eval batch; the folded rgbd pipeline sharded on both meshes against the
+    unsharded one; Trainer(mesh=(2, 1)).fit for an epoch and a second
+    Trainer resuming it. Writes its readings and launch counts (by kernel
+    and batch) to job["out"] % rank."""
+    import torch.distributed as dist
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.configs.presets import get_preset
+    from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
+    from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
+    from pose6d_tpu_torch.models.posenet import PoseNetConfig
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+    from pose6d_tpu_torch.parallel import gather_params, gather_state, make_mesh, param_spec
+    from pose6d_tpu_torch.train import loop as tl
+    from pose6d_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{job['init']}", world_size=2, rank=rank)
+    counts, out = collections.Counter(), {"rank": rank}
+    secs, t0 = {"start-up": time.time() - job["t0"]}, time.perf_counter()
+
+    def tally(batch: int) -> None:
+        for k, v in _build.launch_counts.items():
+            counts[(k, batch)] += v
+        _build.launch_counts.clear()
+
+    try:
+        meshes = {shape: make_mesh(shape) for shape in ((2, 1), (1, 2))}
+        store = DeviceFrameStore(*job["store"], img_size=224, flavor="rgbd", device=dev)
+        models = seeded_object_models(np.random.default_rng(SEED + 17), dev)
+        for shape, (meta, batch, ref) in job["train"].items():
+            mesh = meshes[shape]
+            _build.launch_counts.clear()
+            state, m64, grads, _ = mesh_step(store, meta, batch, mesh, dev, torch.float64)
+            got = {"f64": {"loss": m64["loss"], "grads": gather_params(grads, mesh)}}
+            del state, grads
+            state, metrics, grads, ms = mesh_step(store, meta, batch, mesh, dev, timed=True)
+            tally(batch // mesh.dp)
+            got["f32"] = {"loss": metrics["loss"], "grads": gather_params(grads, mesh)}
+            res = {"ms": ms, "loss": metrics["loss"]}
+            if rank == 0:
+                res["worst"] = hold_step(ref, got)
+            del got
+            sd = state.model.state_dict()
+            res["digest"] = tensors_digest(sd.values())
+            res["replicated"] = tensors_digest(
+                [v for k, v in sd.items() if param_spec(k, v, mesh.tp > 1) is None])
+            ev = eval_batch(store, meta, dev)
+            tally(32)
+            m = tl.make_eval_step(tl.TrainConfig(variant="rgbd", batch_size=batch), models,
+                                  mesh)(state, ev)
+            tally(batch // mesh.dp)
+            check(all(bool(torch.isfinite(v).all()) for v in m.values()),
+                  f"{shape} eval metrics not finite")
+            check(int(m["count"]) == batch and tuple(m["pred_rot"].shape) == (batch, 4),
+                  f"{shape} eval: count {int(m['count'])}, pred_rot {tuple(m['pred_rot'].shape)}")
+            res["eval_add"] = float(m["add_mean"])
+            out[f"train {shape}"] = res
+            del state, grads, sd, ev, m
+            torch.cuda.empty_cache()
+            secs[f"steps {shape}"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+        serve = job["serve"]
+        K = torch.from_numpy(LINEMOD_K).to(dev)
+        for shape, (frames, depths, ref) in serve["requests"].items():
+            pipe = PosePipeline(PipelineConfig(variant="rgbd", img_size=224,
+                                               compute_dtype=torch.bfloat16),
+                                YoloConfig(), serve["yolo"], serve["pose"],
+                                PoseNetConfig(variant="rgbd"), device=dev)
+            pipe.fold_backbones(pallas_stem=True, pallas_layer1=True).shard(meshes[shape])
+            f, d = torch.from_numpy(frames).to(dev), torch.from_numpy(depths).to(dev)
+            pipe(f, K, d)  # warm-up (cuDNN set-up), not counted
+            _build.launch_counts.clear()
+            with torch.inference_mode():
+                got = pipe(f, K, d)
+            sync(dev)
+            tally(len(frames) // meshes[shape].dp)
+            check(torch.equal(got["bbox_xywh"].cpu(), ref["bbox_xywh"]),
+                  f"{shape} shard: boxes differ from the unsharded pipeline's")
+            diff = max((got[k].float().cpu() - ref[k]).abs().max().item()
+                       for k in ("rotation", "translation"))
+            check(diff <= POSE_ATOL, f"{shape} shard: poses differ by {diff:.3g} > {POSE_ATOL}")
+            out[f"serve {shape}"] = {"pose_diff": diff, "digest": tensors_digest(
+                [got[k] for k in ("rotation", "translation", "bbox_xywh")])}
+            del pipe, got
+            torch.cuda.empty_cache()
+        secs["serving"], t0 = time.perf_counter() - t0, time.perf_counter()
+
+        tree = job["tree"]
+        cfg = get_preset("rgbd", batch_size=MESH_TRAIN_BATCH)
+        digests = []
+        for resume in (False, True):
+            _build.launch_counts.clear()
+            tr = Trainer(cfg, tree["data"], tree["models"], tree["save"], seed=SEED,
+                         num_workers=2, mesh=meshes[(2, 1)], device_preprocess=True, device=dev)
+            try:
+                if resume:
+                    check(tr.try_resume() and tr.start_epoch == 1,
+                          f"the mesh Trainer did not resume its epoch ({tr.start_epoch})")
+                else:
+                    t0 = time.perf_counter()
+                    tr.fit(epochs=1)
+                    out["fit_s"] = time.perf_counter() - t0
+                full = gather_state(tr.state)
+                digests.append(tensors_digest(
+                    list(full["model"].values())
+                    + [v for s in full["optimizer"]["state"].values() for v in s.values()]))
+            finally:
+                tr.close()
+            tally(MESH_TRAIN_BATCH // 2)
+        check(digests[0] == digests[1], "the resumed mesh Trainer's state differs")
+        secs["Trainer"] = time.perf_counter() - t0
+        out["counts"], out["secs"] = dict(counts), secs
+        dist.barrier()
+        torch.save(out, job["out"] % rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(store, pipe, frames, depths, smi: str):
+    """Data and head parallelism (parallel/) on the one card.
+    (a) A world of one over NCCL, mesh (1, 1): a MESH_NCCL_STEPS-step
+        make_train_epoch on phase 10's store and the folded rgbd pipeline
+        (stem and layer1 kernels) sharded on it, each bit-equal to the same
+        run without a mesh (cuDNN deterministic for the epochs).
+    (b) Two ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
+        card), at full width: mesh_rank, against one-process references
+        made here first (each step in f32 and in float64; hold_step). Returns
+        the launch counts of (a)'s mesh runs and of both ranks, by (kernel,
+        batch), and the readings."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.data.device_pipeline import DeviceFrameStore
+    from pose6d_tpu_torch.parallel import make_mesh, shard_state
+    from pose6d_tpu_torch.train import loop as tl
+
+    dev = store.device
+    rng = np.random.default_rng(SEED + 18)
+    counts, out = collections.Counter(), {}
+    K = torch.from_numpy(LINEMOD_K).to(dev)
+
+    # (b)'s serving references and weights, while `pipe` is unsharded:
+    # BATCH frames a call, each rank's batch
+    frames16 = rng.integers(0, 256, (MESH_SERVE_FRAMES, FRAME_H, FRAME_W, 3), dtype=np.uint8)
+    depths16 = rng.uniform(0.3, 1.5, (MESH_SERVE_FRAMES, FRAME_H, FRAME_W)).astype(np.float32)
+    requests = {}
+    with torch.inference_mode():
+        for shape, n in (((2, 1), MESH_SERVE_FRAMES), ((1, 2), BATCH)):
+            parts = [pipe(torch.from_numpy(frames16[i:i + BATCH]).to(dev), K,
+                          torch.from_numpy(depths16[i:i + BATCH]).to(dev))
+                     for i in range(0, n, BATCH)]
+            ref = {k: torch.cat([p[k] for p in parts]).float().cpu()
+                   for k in ("rotation", "translation", "bbox_xywh")}
+            requests[shape] = (frames16[:n], depths16[:n], ref)
+    serve = {"yolo": {k: v.cpu() for k, v in pipe.yolo.state_dict().items()},
+             "pose": {k: v.cpu() for k, v in pipe.posenet.state_dict().items()},
+             "requests": requests}
+
+    # (a) NCCL, world of one
+    t0 = time.perf_counter()
+    init = os.path.join(_build.BUILD_DIR, "mesh_nccl_rendezvous")
+    if os.path.exists(init):
+        os.remove(init)
+    dist.init_process_group("nccl", init_method=f"file://{init}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1))
+        cfg = tl.TrainConfig(variant="rgbd")
+        meta, _ = store.epoch_meta(cfg.batch_size, rng)
+        meta = {k: v[:MESH_NCCL_STEPS] for k, v in meta.items()}
+        runs = []
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            for m in (None, mesh):
+                state = tl.create_train_state(cfg, seed=SEED + 7, device=dev)
+                if m is not None:
+                    state = shard_state(state, m)
+                epoch = tl.make_train_epoch(cfg, frame_hw=(store.frame_h, store.frame_w), mesh=m)
+                g = torch.Generator(device=dev).manual_seed(SEED)
+                sync(dev)
+                _build.launch_counts.clear()
+                state, losses = epoch(state, store.rgb_frames, store.depth_frames, meta, g)
+                sync(dev)
+                if m is not None:
+                    counts.update({(k, cfg.batch_size): v for k, v in _build.launch_counts.items()})
+                runs.append((losses.cpu(), {k: v.cpu() for k, v in state.model.state_dict().items()}))
+                del state
+        check(torch.equal(runs[0][0], runs[1][0]), f"NCCL (1, 1) epoch losses {runs[1][0].tolist()} "
+                                                   f"vs {runs[0][0].tolist()} without a mesh")
+        differ = [k for k in runs[0][1] if not torch.equal(runs[0][1][k], runs[1][1][k])]
+        check(not differ, f"NCCL (1, 1) epoch: {len(differ)} tensors differ, e.g. {differ[:3]}")
+        check(counts[("gather_rows_u32", 32)] == 2 * MESH_NCCL_STEPS,
+              f"NCCL (1, 1) epoch launches {dict(counts)}")
+        del runs
+        f, d = torch.from_numpy(frames).to(dev), torch.from_numpy(depths).to(dev)
+        with torch.inference_mode():
+            want = pipe(f, K, d)
+            pipe.shard(mesh)
+            _build.launch_counts.clear()
+            got = pipe(f, K, d)
+            sync(dev)
+        counts.update({(k, len(frames)): v for k, v in _build.launch_counts.items()})
+        for k in ("rotation", "translation", "bbox_xywh", "class_id", "det_score"):
+            check(torch.equal(got[k], want[k]), f"NCCL (1, 1) shard: {k} differs")
+        check(_build.launch_counts["fused_stem_c3"] == 1 and _build.launch_counts["fused_layer1"] == 2,
+              f"NCCL (1, 1) shard launches {dict(_build.launch_counts)}")
+    finally:
+        dist.destroy_process_group()
+    out["nccl_s"] = time.perf_counter() - t0
+    log(f"  (a) NCCL world of 1, mesh (1, 1): {MESH_NCCL_STEPS}-step rgbd epoch at batch 32 and "
+        f"the folded rgbd pipeline sharded, both bit-equal to the runs without a mesh "
+        f"({out['nccl_s']:.1f}s)")
+
+    # (b) gloo, two ranks on the one card: the references first
+    t0 = time.perf_counter()
+    arrays = seeded_split_arrays(rng, MESH_STORE_FRAMES)
+    mstore = DeviceFrameStore(*arrays, img_size=224, flavor="rgbd", device=dev)
+    train = {}
+    for shape, batch in (((2, 1), MESH_TRAIN_BATCH), ((1, 2), MESH_TRAIN_BATCH // 2)):
+        meta = mstore.meta_batch(rng.integers(0, MESH_STORE_FRAMES, batch), rng)
+        ref = {}
+        for key, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            state, metrics, grads, ms = mesh_step(mstore, meta, batch, None, dev, dtype,
+                                                  timed=key == "f32")
+            ref[key] = {
+                "loss": metrics["loss"],
+                "grads": {k: v.cpu().share_memory_() for k, v in grads.items()}}
+            if ms is not None:
+                out[f"one-process {batch}"] = ms
+            del state, grads
+        train[shape] = (meta, batch, ref)
+    del mstore
+    root = os.path.join(_build.BUILD_DIR, "smoke_mesh_linemod")
+    shutil.rmtree(root, ignore_errors=True)
+    tree = write_linemod_tree(root, rng, frames=MESH_TREE_FRAMES)
+    job = {"init": os.path.join(_build.BUILD_DIR, "mesh_gloo_rendezvous"),
+           "out": os.path.join(_build.BUILD_DIR, "mesh_rank%d.pt"),
+           "store": arrays, "train": train,
+           "serve": serve,
+           "tree": {"data": tree["data"], "models": tree["models"],
+                    "save": os.path.join(root, "weights_rgbd_mesh")}}
+    if os.path.exists(job["init"]):
+        os.remove(job["init"])
+    torch.cuda.empty_cache()
+    out["gloo_prep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    job["t0"] = time.time()
+    try:
+        mp.spawn(mesh_rank, args=(job,), nprocs=2, join=True)
+        ranks = [torch.load(job["out"] % r, weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["gloo_s"] = time.perf_counter() - t0
+    for shape in ((2, 1), (1, 2)):
+        a, b = (r[f"train {shape}"] for r in ranks)
+        if shape == (2, 1):
+            check(a["digest"] == b["digest"], "(2, 1) step: the data replicas differ")
+        check(a["replicated"] == b["replicated"], f"{shape} step: the replicated tensors differ")
+        check(a["loss"] == b["loss"], f"{shape} step: the ranks' losses differ")
+        out[f"gloo {shape}"] = a
+        sa, sb = (r[f"serve {shape}"] for r in ranks)
+        check(sa["digest"] == sb["digest"], f"{shape} shard: the ranks' outputs differ")
+        out[f"serve {shape}"] = sa
+    for r in ranks:
+        c = r["counts"]
+        for kernel, batch in (("gather_rows_u32", 32), ("pairwise_min_dist", 32),
+                              ("fused_stem_c3", BATCH), ("fused_layer1", BATCH)):
+            check(c.get((kernel, batch), 0) > 0, f"rank {r['rank']} launched no {kernel} at "
+                                                  f"{batch}: {c}")
+        counts.update(c)
+    out["fit_s"] = ranks[0]["fit_s"]
+    for shape in ((2, 1), (1, 2)):
+        g = out[f"gloo {shape}"]
+        log(f"  (b) gloo {shape} rgbd step at global batch {train[shape][1]}: float64 within "
+            f"{g['worst']['f64']:.3g} rel L2 of the one-process step; f32 worst leaf "
+            f"{g['worst']['f32'][0]:.3g} from the float64 step (one-process f32: "
+            f"{g['worst']['f32'][1]:.3g}); replicas equal; smoke reading: {g['ms']:.1f} ms/step "
+            f"(gloo, two ranks on one card) vs {out[f'one-process {train[shape][1]}']:.1f} ms "
+            f"one-process (CUDA events)")
+        log(f"  (b) gloo {shape} folded rgbd shard on {len(requests[shape][0])} frames: poses "
+            f"within {out[f'serve {shape}']['pose_diff']:.3g} of the unsharded pipeline, "
+            f"boxes equal")
+    log(f"  (b) Trainer(mesh=(2, 1)).fit(epochs=1) at batch {MESH_TRAIN_BATCH} on a tree of "
+        f"{tree['frames']} frames: {out['fit_s']:.1f}s, resumed bit for bit; references "
+        f"{out['gloo_prep_s']:.1f}s, ranks {out['gloo_s']:.1f}s (rank 0: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in ranks[0]["secs"].items()) + ")")
+    return counts, out
+
+
 def setup(rng, rng_new, device):
     """Seeded full-width weights; per path (rgbd with the stem and layer1
     kernels, rgbd_geometric with the stem and stage 1-2 kernels, rgb with
@@ -2477,13 +2918,26 @@ def main() -> int:
           f"launches " + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(cli_counts.items()))
         + f" ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    frames, depths = requests["native"]
+    mesh_counts, mesh = phase_mesh(store, paths["rgbd"][0], frames[1], depths[1], smi)
+    for (k, batch), v in sorted(mesh_counts.items()):
+        count({k: v}, batch)
+    log(f"[phase 14 mesh] parallel/ on {smi}: NCCL world of 1 bit-equal to no mesh; two gloo "
+        f"ranks on the card: (2, 1) step {mesh['gloo (2, 1)']['ms']:.1f} ms vs one-process "
+        f"{mesh[f'one-process {MESH_TRAIN_BATCH}']:.1f} ms at batch {MESH_TRAIN_BATCH}, (1, 2) "
+        f"step {mesh['gloo (1, 2)']['ms']:.1f} ms vs {mesh[f'one-process {MESH_TRAIN_BATCH // 2}']:.1f}"
+        f" ms at {MESH_TRAIN_BATCH // 2} (smoke readings, CUDA events); launches "
+        + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(mesh_counts.items()))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
     # the b32 addmin row: phase 3's inputs and the eval step's
     r = by_id[("pairwise_min_dist", 32)]
     r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 14 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 15 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())

@@ -9,7 +9,8 @@ by a small C++ library (native/linemod_host.cpp, built with one g++ call
 into `_build/` at first use; data/_native.py).
 
 The TPU's Pallas kernels on the serving path are hand-written CUDA C++ under
-csrc/, built with one nvcc call into `_build/` at first use (see _build.py).
+csrc/, built at first use into `_build/`, one nvcc per source in parallel
+(see _build.py).
 Every kernel wrapper runs its plain PyTorch version for CPU tensors only; a
 CUDA tensor launches the kernel or raises.
 

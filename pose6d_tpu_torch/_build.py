@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-One nvcc call compiles every source into a shared library with a plain C
+One nvcc process per source, all started together, compiles the sources
+to objects, and one more links them into a shared library with a plain C
 interface, `_build/libpose6d_kernels.so`, loaded with ctypes. No source
 includes PyTorch's headers, so the build takes seconds rather than minutes.
 The library is rebuilt when it is missing or older than any source or
@@ -92,21 +93,44 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in sources() + headers())
 
 
+def _run(procs) -> str:
+    """Wait for (command, Popen) pairs; their output, raising if one failed."""
+    out = ""
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        out += text
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    return out
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> float:
-    """Compile csrc/*.cu with one nvcc call if the library is missing or
-    stale; returns the seconds spent (0.0 when up to date)."""
+    """Compile csrc/*.cu if the library is missing or stale (one nvcc per
+    source, in parallel, then the link); returns the seconds spent (0.0
+    when up to date)."""
     if not _stale():
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, *sources()]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{os.getpid()}.o")
+            for src in sources()]
     t0 = time.perf_counter()
-    run = subprocess.run(cmd, capture_output=True, text=True)
-    with open(LOG_PATH, "w") as f:
-        f.write(run.stdout + run.stderr)
-    if run.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({run.returncode}):\n{run.stdout}{run.stderr}")
+    log = ""
+    try:
+        log = _run([_start([_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+                            "-Xcompiler", "-fPIC", "-c", "-o", obj, src])
+                    for src, obj in zip(sources(), objs)])
+        log += _run([_start([_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp, *objs])])
+    finally:
+        with open(LOG_PATH, "w") as f:
+            f.write(log)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)  # atomic: concurrent builders never see half
     return time.perf_counter() - t0
 

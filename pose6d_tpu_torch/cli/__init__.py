@@ -11,6 +11,12 @@ package's scripts/*.py), each run as `python -m pose6d_tpu_torch.cli.<name>`:
   eval_e2e                   the whole system's ADD metrics over a split
   convert_reference_weights  the reference's PoseNet* .pth <-> a Trainer checkpoint
   demo                       the steps above on a small synthetic tree
+  compare_visual             ground truth beside every trained variant, PNG grids
+  visualize_yolo             the detector's boxes on random test frames, PNGs
+  package_weights            the trained weights into one zip
+  setup_weights              unpack that zip and check the layout (no download)
+
+train --mesh DP,TP runs under torchrun, one process per rank (cli/train.py).
 
 Each takes the JAX script's arguments. Those that compute take --device,
 "cuda" by default; there is no fallback to the CPU without "--device cpu".

@@ -111,33 +111,47 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 def encode_png(img: np.ndarray) -> bytes:
     """A PNG of an [H, W, 3] uint8 image (8-bit RGB, stored in that channel
     order) or an [H, W] uint16 one (16-bit grey, big-endian), zlib level 1.
-    Row y uses filter type y % 5, so every one of the five filters occurs."""
+    Row y uses filter type y % 5, so every one of the five filters occurs;
+    each filter is computed on its own rows only, in uint8 arithmetic
+    (PNG's filters are modulo 256)."""
     img = np.asarray(img)
     h, w = img.shape[:2]
     if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
         color, depth, bpp = 2, 8, 3
-        rows = img.reshape(h, w * 3).astype(np.int16)
+        rows = img.reshape(h, w * 3)
     elif img.dtype == np.uint16 and img.ndim == 2:
         color, depth, bpp = 0, 16, 2
-        rows = img.astype(">u2").view(np.uint8).reshape(h, w * 2).astype(np.int16)
+        rows = img.astype(">u2").view(np.uint8).reshape(h, w * 2)
     else:
         raise ValueError(f"encode_png: an [H, W, 3] uint8 or [H, W] uint16 image, got "
                          f"{img.shape} {img.dtype}")
-    left = np.zeros_like(rows)
-    left[:, bpp:] = rows[:, :-bpp]
-    up = np.zeros_like(rows)
-    up[1:] = rows[:-1]
-    upleft = np.zeros_like(rows)
-    upleft[1:, bpp:] = rows[:-1, :-bpp]
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    filtered = np.stack([rows, rows - left, rows - up, rows - ((left + up) >> 1), rows - paeth])
-    ftype = np.arange(h) % 5
-    data = np.concatenate([ftype[:, None], filtered[ftype, np.arange(h)] & 0xFF], 1)
+    up_all = np.zeros_like(rows)
+    up_all[1:] = rows[:-1]
+    data = np.empty((h, rows.shape[1] + 1), np.uint8)
+    data[:, 0] = np.arange(h) % 5
+    for ftype in range(5):
+        x, up = rows[ftype::5], up_all[ftype::5]
+        left = np.zeros_like(x)
+        left[:, bpp:] = x[:, :-bpp]
+        if ftype == 0:
+            f = x
+        elif ftype == 1:
+            f = x - left
+        elif ftype == 2:
+            f = x - up
+        elif ftype == 3:
+            f = x - ((left.astype(np.uint16) + up) >> 1).astype(np.uint8)
+        else:
+            a, b = left.astype(np.int16), up.astype(np.int16)
+            c = np.zeros_like(b)
+            c[:, bpp:] = b[:, :-bpp]
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            f = x - np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)).astype(np.uint8)
+        data[ftype::5, 1:] = f
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(data.astype(np.uint8).tobytes(), 1))
+            + _chunk(b"IDAT", zlib.compress(data.tobytes(), 1))
             + _chunk(b"IEND", b""))
 
 

@@ -18,6 +18,7 @@ data/png.py, in place of cv2.
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -156,6 +157,15 @@ def _merge_models_info(model_dir: str, info_lines: list) -> None:
         f.writelines(merged[k] for k in sorted(merged))
 
 
+PNG_BATCH = 64  # images held before they are written
+
+
+def _write_pngs(items) -> None:
+    """write_png over (path, image) pairs, on threads: zlib releases the GIL."""
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(lambda item: write_png(*item), items))
+
+
 def generate_synthetic_linemod(root: str, obj_ids: tuple = (1, 2), frames_per_obj: int = 20,
                                img_w: int = 640, img_h: int = 480, seed: int = 0,
                                max_angle_deg: float = 0.0,
@@ -193,14 +203,19 @@ def generate_synthetic_linemod(root: str, obj_ids: tuple = (1, 2), frames_per_ob
         gt_entries, info_entries = [], []
         color = tuple(int(c) for c in rng.integers(80, 255, size=3))
         edge_cmap, corner_cmap = _color_maps(obj_id, symmetric_obj_ids)
+        pngs = []
         for frame in range(frames_per_obj):
             rgb, depth, bbox, R_m2c, t_m = _render_frame(
                 rng, corners_m, K, color, edge_cmap, corner_cmap, img_w, img_h, max_angle_deg)
-            write_png(os.path.join(rgb_dir, f"{frame:04d}.png"), rgb)
-            write_png(os.path.join(depth_dir, f"{frame:04d}.png"), depth)
+            pngs += [(os.path.join(rgb_dir, f"{frame:04d}.png"), rgb),
+                     (os.path.join(depth_dir, f"{frame:04d}.png"), depth)]
+            if len(pngs) >= PNG_BATCH:
+                _write_pngs(pngs)
+                pngs = []
             gt_entries.append((frame, R_m2c.flatten().tolist(), (t_m * 1000.0).tolist(), bbox,
                                obj_id))
             info_entries.append((frame, K.flatten().tolist()))
+        _write_pngs(pngs)
 
         with open(os.path.join(obj_dir, "gt.yml"), "w") as f:
             for frame, rmat, tmm, bbox, oid in gt_entries:

@@ -24,8 +24,16 @@ A depth variant called without a depth map serves an all-zero one, as the
 JAX pipeline does: zero depth is invalid everywhere, so rgbd's depth tower
 sees 0 and rgbd_geometric's translation falls back to depth_fallback.
 
-Not ported: shard, and quantize_backbones' percentile calibration (no
-caller of either package sets it); see ROADMAP.md.
+shard(mesh) serves over a parallel.Mesh, one process per rank: every rank
+is called with the same full batch (as JAX's caller is), runs detect ->
+crop -> towers on its rows of the frames and the heads split over the
+model group (parallel/heads.py), and all-gathers the outputs, so that every
+rank returns what the unsharded pipeline returns. fold_backbones and
+quantize_backbones compose with shard in either order; under a mesh the
+calibration's abs-max statistics are reduced with MAX over the data group.
+
+Not ported: quantize_backbones' percentile calibration (no caller of
+either package sets it); see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -103,10 +111,41 @@ class PosePipeline:
         self._quantized: dict = {}
         self._yolo_int8 = None  # the int8 detector over _quantized["__yolo__"]
         self._zero_depth = None  # cached all-zero depth map [B, H, W]
+        self.mesh = None
 
     def _load(self, module, state):
         module.load_state_dict(state, strict=True)
         return module.to(self.device, memory_format=torch.channels_last).eval()
+
+    def shard(self, mesh) -> "PosePipeline":
+        """Serve over `mesh` (a parallel.Mesh: this process is one of its
+        ranks): frames split over the data axis, the detector and the towers
+        replicated, the pose heads Megatron-split over the model axis. Frame
+        batches must divide the data axis. Returns self."""
+        from ..parallel import shard_posenet
+
+        shard_posenet(self.posenet, mesh)
+        self.mesh = mesh
+        return self
+
+    def _rows(self, t):
+        """This rank's rows of a frame batch (all of it without a mesh)."""
+        if self.mesh is None or t is None:
+            return t
+        from ..parallel.mesh import local_rows
+
+        return t[local_rows(t.shape[0], self.mesh)]
+
+    def _reduce_max(self):
+        """The calibration's abs-max reduction under a mesh, else None."""
+        if self.mesh is None:
+            return None
+        import torch.distributed as dist
+
+        from ..parallel.collectives import all_reduce_
+
+        group = self.mesh.data_group
+        return lambda t: all_reduce_(t, group, dist.ReduceOp.MAX)
 
     def fold_backbones(self, pallas_layer1: bool = False, pallas_stem: bool = False,
                        pallas_stages: tuple = ()):
@@ -145,16 +184,20 @@ class PosePipeline:
         goes to per-channel int8 (ops/quant.py); with include_detector the detector too, calibrated
         on the canvas it takes (frames / 255 at native resolution, or the
         letterbox). calib_K is taken as the JAX pipeline takes it, unused.
-        A tower also folded by fold_backbones runs int8. Returns self."""
-        frames = self._tensor(calib_frames)
+        A tower also folded by fold_backbones runs int8. Under a mesh each
+        rank calibrates on its rows of the frames and the abs maxes are
+        reduced with MAX over the data group: every rank holds the scales of
+        the whole batch. Returns self."""
+        frames = self._rows(self._tensor(calib_frames))
         depth = (torch.zeros(frames.shape[:3], device=self.device) if calib_depth is None
-                 else self._tensor(calib_depth, torch.float32))
+                 else self._rows(self._tensor(calib_depth, torch.float32)))
         crops, depth_norm = self._calib_crops(frames, depth)
-        q = {name: quantize_resnet_from_variables(getattr(self.posenet, name), [x])
+        reduce_max = self._reduce_max()
+        q = {name: quantize_resnet_from_variables(getattr(self.posenet, name), [x], reduce_max)
              for name, x in self.posenet.tower_inputs(crops, depth_norm).items()}
         if include_detector:
             canvas = self._letterbox(frames.float() / 255.0)[0]
-            q["__yolo__"] = quantize_yolo_from_variables(self.yolo, [canvas])
+            q["__yolo__"] = quantize_yolo_from_variables(self.yolo, [canvas], reduce_max)
         return self.load_quantized(q)
 
     def load_quantized(self, quantized: dict):
@@ -335,7 +378,8 @@ class PosePipeline:
         """frames [B, H, W, 3] uint8; camera_K [B, 3, 3] or [3, 3];
         depth_raw_full [B, H, W] metres (rgbd variants; None serves an
         all-zero map). Numpy arrays or tensors; returns a dict of tensors on
-        the pipeline's device."""
+        the pipeline's device. After shard(), every rank passes the same
+        full batch and gets the full outputs."""
         frames = self._tensor(frames)
         camera_K = self._tensor(camera_K, torch.float32)
         if camera_K.ndim == 2:
@@ -343,7 +387,18 @@ class PosePipeline:
         if self.cfg.variant in ("rgbd", "rgbd_geometric"):
             depth_raw_full = (self._zero_depth_map(frames.shape[:3]) if depth_raw_full is None
                               else self._tensor(depth_raw_full, torch.float32))
-        return self._run(frames, camera_K, depth_raw_full)
+        if self.mesh is None:
+            return self._run(frames, camera_K, depth_raw_full)
+        from ..parallel.collectives import all_gather_rows
+
+        out = self._run(*(self._rows(t) for t in (frames, camera_K, depth_raw_full)))
+        group = self.mesh.data_group
+
+        def gather(v):
+            return ({k: gather(x) for k, x in v.items()} if isinstance(v, dict)
+                    else all_gather_rows(v, group))
+
+        return gather(out)
 
     def _zero_depth_map(self, shape) -> torch.Tensor:
         """The all-zero f32 depth map of `shape` [B, H, W], cached per shape."""

@@ -218,19 +218,28 @@ def add_per_sample(model_points, diameters, symmetric, present, pred_rot_mat,
 
 
 def add_metrics(model_points, diameters, symmetric, present, pred_rot_mat,
-                pred_trans, gt_rot_mat, gt_trans, obj_ids, num_valid=None) -> dict:
+                pred_trans, gt_rot_mat, gt_trans, obj_ids, num_valid=None, group=None) -> dict:
     """Batch means over valid samples: 'add_mean' and 'add_s_mean' in mm,
-    'add_01d_acc' in %, and 'count' (reference models/add_loss.py:156-201)."""
+    'add_01d_acc' in %, and 'count' (reference models/add_loss.py:156-201).
+    group (a data group, parallel/collectives.Group): each rank holds its
+    rows, and the sums and the count are all-reduced before the division,
+    so every rank gets the means of the global batch."""
     per = add_per_sample(model_points, diameters, symmetric, present, pred_rot_mat,
                          pred_trans, gt_rot_mat, gt_trans, obj_ids, num_valid)
     valid = per["valid"]
-    count = valid.sum()
-    denom = count.clamp_min(1)
     vmask = valid.float()
+    sums = [(per[k] * vmask).sum() for k in ("add", "add_s", "correct")]
+    count = valid.sum()
+    if group is not None:
+        from ..parallel.collectives import all_reduce_
+
+        total = all_reduce_(torch.stack(sums + [count.to(vmask.dtype)]), group)
+        sums, count = list(total[:3]), total[3].round().long()
+    denom = count.clamp_min(1)
     return {
-        "add_mean": (per["add"] * vmask).sum() / denom * 1000.0,
-        "add_s_mean": (per["add_s"] * vmask).sum() / denom * 1000.0,
-        "add_01d_acc": (per["correct"] * vmask).sum() / denom * 100.0,
+        "add_mean": sums[0] / denom * 1000.0,
+        "add_s_mean": sums[1] / denom * 1000.0,
+        "add_01d_acc": sums[2] / denom * 100.0,
         "count": count,
     }
 

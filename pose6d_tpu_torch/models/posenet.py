@@ -86,7 +86,16 @@ def _gelu(x):
 class Dropout(nn.Module):
     """flax nn.Dropout: in train mode, keep each element with probability
     1 - rate and scale it by 1 / (1 - rate), the keep mask drawn from the
-    generator; identity in eval mode or at rate 0."""
+    generator; identity in eval mode or at rate 0.
+
+    Under a mesh (parallel/heads.shard_posenet) `rows` = (this rank's
+    block, blocks) and, after a column-parallel layer, `cols` likewise:
+    the mask is drawn at the global shape, which every rank's generator
+    draws alike, and the rank keeps its block of it, so that the sharded
+    step drops what the one-process step drops."""
+
+    rows = None
+    cols = None
 
     def __init__(self, rate: float):
         super().__init__()
@@ -98,7 +107,15 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout in train mode draws from a generator; none was given")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        shape = list(x.shape)
+        blocks = ((0, self.rows), (x.dim() - 1, self.cols))
+        for dim, block in blocks:
+            if block is not None:
+                shape[dim] *= block[1]
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        for dim, block in blocks:
+            if block is not None:
+                mask = mask.narrow(dim, block[0] * x.shape[dim], x.shape[dim])
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -184,6 +201,8 @@ class ZBackbone(nn.Module):
 
 
 class PoseNet(nn.Module):
+    mesh = None  # set by parallel/heads.shard_posenet
+
     def __init__(self, config: PoseNetConfig):
         super().__init__()
         v = config.variant

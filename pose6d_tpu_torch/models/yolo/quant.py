@@ -20,7 +20,7 @@ exists once, in model.py.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -118,19 +118,22 @@ def yolo_int8_model(q: Dict[str, dict], cfg: YoloConfig,
     return _rewired(cfg, convbn, lambda path: _float_out(q[path]))
 
 
-def calibrate_yolo(folded: Dict[str, dict], cfg: YoloConfig,
-                   batches: Iterable) -> Dict[str, float]:
+def calibrate_yolo(folded: Dict[str, dict], cfg: YoloConfig, batches: Iterable,
+                   reduce_max: Optional[Callable] = None) -> Dict[str, float]:
     """{path: input scale} of every ConvBN: its input's abs max over the f32
-    folded forward of `batches` (NHWC frames as the detector takes them)."""
+    folded forward of `batches` (NHWC frames as the detector takes them;
+    reduce_max: see ops.quant.observe_act_scales)."""
     device = folded["backbone/stem"]["w"].device
     return observe_act_scales(
         lambda x, observer: yolo_folded_forward(folded, cfg, x, observer=observer),
-        batches, device)
+        batches, device, reduce_max)
 
 
-def quantize_yolo_from_variables(model: YoloV8, calib_batches: Iterable) -> Dict[str, dict]:
+def quantize_yolo_from_variables(model: YoloV8, calib_batches: Iterable,
+                                 reduce_max: Optional[Callable] = None) -> Dict[str, dict]:
     """One-call PTQ of the detector (eval-mode BN folded) over calibration
     frames ([B, H, W, 3], normalized to [0, 1]): the int8 tree for
     yolo_int8_model."""
     folded = fold_yolo(model)
-    return quantize_folded(folded, calibrate_yolo(folded, model.cfg, calib_batches))
+    return quantize_folded(folded, calibrate_yolo(folded, model.cfg, calib_batches,
+                                                  reduce_max))

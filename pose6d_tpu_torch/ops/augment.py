@@ -13,6 +13,12 @@ of the four jitter ops, and selects instead of control flow. Randomness
 comes from an explicit torch.Generator on the images' device; the factor
 distributions and the order permutation are the JAX package's, its random
 streams are not.
+
+Under a data-parallel mesh each rank holds its rows of the global batch:
+`rows` = (this rank's block, blocks). Every draw is made at the global
+batch, as every rank's generator makes it alike, and the rank applies its
+block of the draws to its images; the one-process stack on the global batch
+draws the same.
 """
 
 from __future__ import annotations
@@ -126,19 +132,30 @@ def _uniform(generator, shape, lo, hi, device) -> torch.Tensor:
     return u * (hi - lo) + lo
 
 
+def _global_batch(b: int, rows) -> int:
+    return b if rows is None else b * rows[1]
+
+
+def _block(t: torch.Tensor, b: int, rows) -> torch.Tensor:
+    """This rank's b rows of a draw made at the global batch."""
+    return t if rows is None else t.narrow(0, rows[0] * b, b)
+
+
 def color_jitter_batch(generator: torch.Generator, img: torch.Tensor,
-                       cfg: AugmentConfig) -> torch.Tensor:
+                       cfg: AugmentConfig, rows=None) -> torch.Tensor:
     """torchvision ColorJitter on a batch [B, H, W, 3]: per-image factors
     and a per-image order of the four ops. At each of the 4 positions all
     four ops are computed and a per-image select keeps one."""
     B, dev = img.shape[0], img.device
-    shp = (B, 1, 1, 1)
+    G = _global_batch(B, rows)
+    shp = (G, 1, 1, 1)
     fb = _uniform(generator, shp, max(0.0, 1 - cfg.brightness), 1 + cfg.brightness, dev)
     fc = _uniform(generator, shp, max(0.0, 1 - cfg.contrast), 1 + cfg.contrast, dev)
     fs = _uniform(generator, shp, max(0.0, 1 - cfg.saturation), 1 + cfg.saturation, dev)
-    fh = _uniform(generator, (B, 1, 1), -cfg.hue, cfg.hue, dev)
+    fh = _uniform(generator, (G, 1, 1), -cfg.hue, cfg.hue, dev)
     # a uniform per-image permutation: the argsort of iid uniforms
-    order = torch.argsort(torch.rand((B, 4), generator=generator, device=dev), dim=-1)
+    order = torch.argsort(torch.rand((G, 4), generator=generator, device=dev), dim=-1)
+    fb, fc, fs, fh, order = (_block(t, B, rows) for t in (fb, fc, fs, fh, order))
     x = img
     for pos in range(4):
         o = order[:, pos].view(B, 1, 1, 1)
@@ -149,11 +166,13 @@ def color_jitter_batch(generator: torch.Generator, img: torch.Tensor,
 
 
 def random_grayscale_batch(generator: torch.Generator, img: torch.Tensor,
-                           p: float) -> torch.Tensor:
+                           p: float, rows=None) -> torch.Tensor:
     """Per-image RandomGrayscale on a batch [B, H, W, 3]."""
+    B = img.shape[0]
     gray = rgb_to_grayscale(img).expand(img.shape)
-    take = torch.rand((img.shape[0], 1, 1, 1), generator=generator, device=img.device) < p
-    return torch.where(take, gray, img)
+    take = torch.rand((_global_batch(B, rows), 1, 1, 1), generator=generator,
+                      device=img.device) < p
+    return torch.where(_block(take, B, rows), gray, img)
 
 
 def normalize(img: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
@@ -174,38 +193,40 @@ def erase_boxes(img: torch.Tensor, take: torch.Tensor, y0: torch.Tensor, x0: tor
 
 
 def random_erasing_batch(generator: torch.Generator, img: torch.Tensor,
-                         cfg: AugmentConfig) -> torch.Tensor:
+                         cfg: AugmentConfig, rows=None) -> torch.Tensor:
     """torchvision RandomErasing (value 0) on a batch [B, H, W, C] of
     normalized images: one draw of area and aspect per image (torchvision
     retries up to 10 times), skipped when the box does not fit; the origin
     is floor(u * range), uniform over the valid origins."""
     B, H, W, _ = img.shape
     dev = img.device
-    target = _uniform(generator, (B,), cfg.erase_scale[0], cfg.erase_scale[1], dev) * (H * W)
-    log_ratio = _uniform(generator, (B,), math.log(cfg.erase_ratio[0]),
+    G = _global_batch(B, rows)
+    target = _uniform(generator, (G,), cfg.erase_scale[0], cfg.erase_scale[1], dev) * (H * W)
+    log_ratio = _uniform(generator, (G,), math.log(cfg.erase_ratio[0]),
                          math.log(cfg.erase_ratio[1]), dev)
     ratio = torch.exp(log_ratio)
     h = torch.round(torch.sqrt(target * ratio)).to(torch.int32)
     w = torch.round(torch.sqrt(target / ratio)).to(torch.int32)
     fits = (h < H) & (w < W)
-    take = (torch.rand((B,), generator=generator, device=dev) < cfg.erase_p) & fits
+    take = (torch.rand((G,), generator=generator, device=dev) < cfg.erase_p) & fits
     h = h.clamp(1, H - 1)
     w = w.clamp(1, W - 1)
-    y0 = torch.floor(torch.rand((B,), generator=generator, device=dev)
+    y0 = torch.floor(torch.rand((G,), generator=generator, device=dev)
                      * (H - h + 1).float()).to(torch.int32)
-    x0 = torch.floor(torch.rand((B,), generator=generator, device=dev)
+    x0 = torch.floor(torch.rand((G,), generator=generator, device=dev)
                      * (W - w + 1).float()).to(torch.int32)
-    return erase_boxes(img, take, y0, x0, h, w)
+    return erase_boxes(img, *(_block(t, B, rows) for t in (take, y0, x0, h, w)))
 
 
 def train_augment(generator: torch.Generator, rgb: torch.Tensor,
-                  cfg: AugmentConfig = AugmentConfig()) -> torch.Tensor:
+                  cfg: AugmentConfig = AugmentConfig(), rows=None) -> torch.Tensor:
     """The train-time stack on a batch [B, H, W, 3] (uint8, or float in
-    [0, 1]): jitter -> (grayscale) -> normalize -> erase."""
-    img = color_jitter_batch(generator, to_float01(rgb), cfg)
+    [0, 1]): jitter -> (grayscale) -> normalize -> erase; `rows` under a
+    mesh (see the module docstring)."""
+    img = color_jitter_batch(generator, to_float01(rgb), cfg, rows)
     if cfg.grayscale_p > 0:
-        img = random_grayscale_batch(generator, img, cfg.grayscale_p)
-    return random_erasing_batch(generator, normalize(img), cfg)
+        img = random_grayscale_batch(generator, img, cfg.grayscale_p, rows)
+    return random_erasing_batch(generator, normalize(img), cfg, rows)
 
 
 def eval_preprocess(rgb: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ card alike.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -238,12 +238,15 @@ def int8_resnet50_forward(q: Dict[str, dict], x: torch.Tensor,
     return xf.float().mean(dim=(1, 2)).to(cd)
 
 
-def observe_act_scales(run: Callable, batches: Iterable, device) -> Dict[str, float]:
+def observe_act_scales(run: Callable, batches: Iterable, device,
+                       reduce_max: Optional[Callable] = None) -> Dict[str, float]:
     """Static activation scales: run(x, observer) is a folded forward over
     each calibration batch (as f32 on `device`) calling observer(name, h)
     with each conv's input; per conv, the largest abs max of its input
     over the batches / 127,
-    as Python floats. Reads each statistic back to the host: calibration only."""
+    as Python floats. Reads each statistic back to the host: calibration only.
+    reduce_max: applied to each batch's stacked abs maxes (under a mesh,
+    their MAX over the data group, whose ranks hold different rows)."""
     maxes: Dict[str, float] = {}
     for xb in batches:
         vals = {}
@@ -252,22 +255,27 @@ def observe_act_scales(run: Callable, batches: Iterable, device) -> Dict[str, fl
             vals[name] = h.abs().amax()
 
         run(torch.as_tensor(xb, dtype=torch.float32, device=device), observer)
+        if reduce_max is not None:
+            vals = dict(zip(vals, reduce_max(torch.stack([v.float() for v in vals.values()]))))
         for name, v in vals.items():
             maxes[name] = max(maxes.get(name, 0.0), float(v))
     return {name: max(v, 1e-12) / 127.0 for name, v in maxes.items()}
 
 
-def calibrate_act_scales(folded: Dict[str, dict], batches: Iterable) -> Dict[str, float]:
+def calibrate_act_scales(folded: Dict[str, dict], batches: Iterable,
+                         reduce_max: Optional[Callable] = None) -> Dict[str, float]:
     """{conv name: input scale} of a ResNet50 tower from the f32 folded
-    forward over `batches` (NHWC [B, H, W, C]): each conv input's abs max."""
+    forward over `batches` (NHWC [B, H, W, C]): each conv input's abs max
+    (reduce_max: see observe_act_scales)."""
     device = folded["conv1"]["w"].device
     return observe_act_scales(
         lambda x, observer: folded_resnet50_forward(folded, x, observer=observer),
-        batches, device)
+        batches, device, reduce_max)
 
 
-def quantize_resnet_from_variables(tower: ResNet50, calib_batches: Iterable) -> Dict[str, dict]:
+def quantize_resnet_from_variables(tower: ResNet50, calib_batches: Iterable,
+                                   reduce_max: Optional[Callable] = None) -> Dict[str, dict]:
     """One-call PTQ of a ResNet50 tower (eval-mode BN folded) over
     calibration batches: the int8 tree for int8_resnet50_forward."""
     folded = fold_bn_resnet(tower)
-    return quantize_folded(folded, calibrate_act_scales(folded, calib_batches))
+    return quantize_folded(folded, calibrate_act_scales(folded, calib_batches, reduce_max))

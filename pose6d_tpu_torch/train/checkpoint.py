@@ -11,6 +11,12 @@ plateau scheduler's state, which the reference drops on resume.
 
 Each file is written under a temporary name and then os.replace'd onto
 `<save_dir>/<name>.pt`, so a kill mid-save leaves the previous file whole.
+
+A state sharded on a mesh (parallel.shard_state) is saved in the
+one-process layout: every rank gathers it (parallel.gather_state), rank 0
+writes, and every rank waits at a barrier until the file is there. A load
+into a sharded state cuts the file's tensors to each rank's slices. So a
+checkpoint written under a mesh resumes without one, and the reverse.
 """
 
 from __future__ import annotations
@@ -48,19 +54,31 @@ class CheckpointManager:
         meta = {"epoch": int(epoch), "best_acc": float(best_acc),
                 "best_deploy_acc": float(best_deploy_acc), "curr_acc": float(curr_acc),
                 "curr_add": float(curr_add)}
-        payload = {"model": state.model.state_dict(), "optimizer": state.tx.state_dict(),
-                   "step": int(state.step), "meta": meta,
-                   "scheduler": {k: float(v) for k, v in scheduler_state.items()}}
-        self._write(LAST_NAME, payload)
-        if is_best:
-            self._write(BEST_NAME, {**payload, "meta": {**meta, "best_acc": float(curr_acc)}})
-        if is_best_deploy:
-            self._write(BEST_DEPLOY_NAME, payload)
+        mesh = getattr(state.model, "mesh", None)
+        if mesh is None:
+            payload = {"model": state.model.state_dict(), "optimizer": state.tx.state_dict(),
+                       "step": int(state.step)}
+        else:
+            from ..parallel.mesh import gather_state
+
+            payload = gather_state(state)
+        payload.update(meta=meta, scheduler={k: float(v) for k, v in scheduler_state.items()})
+        if mesh is None or mesh.is_primary:
+            self._write(LAST_NAME, payload)
+            if is_best:
+                self._write(BEST_NAME, {**payload, "meta": {**meta, "best_acc": float(curr_acc)}})
+            if is_best_deploy:
+                self._write(BEST_DEPLOY_NAME, payload)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def load(self, model, name: str = LAST_NAME) -> Optional[dict]:
         """The payload of checkpoint `name`, its tensors on the CPU, or None
         when there is none, it does not load, or its model state does not
-        fit `model` (keys, shapes, dtypes). load_state_dict moves the
+        fit `model` (keys, shapes, dtypes; a sharded model's one-process
+        shapes). load_state_dict moves the
         tensors to the model's device; AdamW's step counts stay on the CPU,
         where a fresh AdamW keeps them (on the card, reading them each step
         would wait for it)."""
@@ -70,6 +88,10 @@ class CheckpointManager:
         try:
             payload = torch.load(path, map_location="cpu", weights_only=True)
             want = model.state_dict()
+            if getattr(model, "mesh", None) is not None:
+                from ..parallel.mesh import full_shape
+
+                want = {k: v.new_empty(full_shape(k, v, model.mesh)) for k, v in want.items()}
             got = payload["model"]
             if set(got) != set(want) or any(got[k].shape != want[k].shape
                                              or got[k].dtype != want[k].dtype for k in want):
@@ -88,8 +110,13 @@ class CheckpointManager:
             return None
         try:
             model_before = {k: v.clone() for k, v in state.model.state_dict().items()}
-            state.model.load_state_dict(payload["model"], strict=True)
-            state.tx.load_state_dict(payload["optimizer"])
+            if getattr(state.model, "mesh", None) is None:
+                state.model.load_state_dict(payload["model"], strict=True)
+                state.tx.load_state_dict(payload["optimizer"])
+            else:
+                from ..parallel.mesh import load_gathered
+
+                load_gathered(state, payload)
         except Exception as e:
             state.model.load_state_dict(model_before)
             print(f"Checkpoint {self.path(name)} not restored ({type(e).__name__}: {e})")

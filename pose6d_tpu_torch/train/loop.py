@@ -28,6 +28,18 @@ backward run in bf16 under torch.autocast, as flax's ResNet50(dtype=bf16)
 does; parameters, optimizer state, BatchNorm running statistics, the heads
 and the loss stay f32. The eval step runs f32 whatever the compute dtype.
 The Trainer (train/trainer.py) drives these steps over a LineMOD split.
+
+Under a mesh (parallel/mesh.py; the state from parallel.shard_state) every
+rank is given the global batch, or the global metadata batch, and takes its
+rows: the gather kernel expands only those. The augmentation and dropout
+draws are made at the global batch and each rank keeps its block;
+BatchNorm reduces its statistics over the data group; the optimizer
+all-reduces the gradients as a mean (PoseOptimizer says over which ranks)
+and sums the squares of the head shards over the model group for the
+clipping norm. So
+the step is the one-process step on the global batch, as the JAX package's
+GSPMD step is. The metrics (the loss, the eval sums) are reduced over the
+data group and every rank returns the global ones.
 """
 
 from __future__ import annotations
@@ -85,6 +97,47 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
+def sharded_global_norm(tensors, sharded, group) -> torch.Tensor:
+    """global_norm of tensors of which those marked `sharded` are this
+    rank's slices over `group` (a model group): their squares are summed
+    over the group, the replicated ones counted once."""
+    tensors = list(tensors)
+    rep = [t for t, s in zip(tensors, sharded) if not s]
+    split = [t for t, s in zip(tensors, sharded) if s]
+    if not split:
+        return global_norm(rep)
+    from ..parallel.collectives import all_reduce_
+
+    sq = global_norm(split) ** 2
+    return torch.sqrt(global_norm(rep) ** 2 + all_reduce_(sq, group))
+
+
+ALL_REDUCE_BUCKET = 1 << 24  # elements a flat all-reduce of gradients holds at most
+
+
+def all_reduce_mean_(tensors, group) -> None:
+    """Each tensor replaced by its mean over `group`, in flat buckets of
+    up to ALL_REDUCE_BUCKET elements: every rank divides the same sum by
+    the same count, so the replicas stay equal bit for bit."""
+    from ..parallel.collectives import all_reduce_
+
+    tensors = list(tensors)
+    i = 0
+    while i < len(tensors):
+        j, n = i + 1, tensors[i].numel()
+        while (j < len(tensors) and tensors[j].dtype == tensors[i].dtype
+               and n + tensors[j].numel() <= ALL_REDUCE_BUCKET):
+            n += tensors[j].numel()
+            j += 1
+        flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors[i:j]]), group)
+        flat.div_(group.size)
+        offset = 0
+        for t in tensors[i:j]:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+        i = j
+
+
 def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
     """optax.clip_by_global_norm in place: every g scaled by max_norm / norm
     when norm >= max_norm, else unchanged (torch's clip_grad_norm_ would
@@ -98,10 +151,21 @@ class PoseOptimizer:
     """optax.chain(clip_by_global_norm(grad_clip), adamw(lr, weight_decay)):
     AdamW with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
     square root), decaying every parameter, BatchNorm and LayerNorm scales
-    and biases included, as optax's adamw does without a mask."""
+    and biases included, as optax's adamw does without a mask.
 
-    def __init__(self, params, cfg: TrainConfig):
+    mesh (parallel.shard_state builds it so): the gradients are first
+    all-reduced as a mean, those of the parameters marked `sharded` (this
+    rank's head slices) over the data group, the replicated ones over every
+    rank: the ranks of a model group compute those alike, but kernels that
+    accumulate with atomics (cuDNN's) round them differently, and the mean
+    keeps the replicas equal bit for bit. The clipping norm sums the squares
+    of the sharded ones over the model group."""
+
+    def __init__(self, params, cfg: TrainConfig, mesh=None, sharded=None):
         self.params = list(params)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.sharded = list(sharded) if sharded is not None else [False] * len(self.params)
         self.grad_clip = cfg.grad_clip
         self.adamw = torch.optim.AdamW(self.params, lr=cfg.learning_rate, betas=(0.9, 0.999),
                                        eps=1e-8, weight_decay=cfg.weight_decay)
@@ -129,7 +193,12 @@ class PoseOptimizer:
         """Clip the gradients, take the AdamW step; returns the global
         gradient norm before clipping (a tensor on the card)."""
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        if self.mesh is None:
+            norm = global_norm(grads)
+        else:
+            all_reduce_mean_([g for g, s in zip(grads, self.sharded) if not s], self.mesh.world)
+            all_reduce_mean_([g for g, s in zip(grads, self.sharded) if s], self.mesh.data_group)
+            norm = sharded_global_norm(grads, self.sharded, self.mesh.model_group)
         clip_by_global_norm_(grads, self.grad_clip, norm)
         self.adamw.step()
         return norm
@@ -257,20 +326,25 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, model: Optional[PoseNet]
     return TrainState(model=model, tx=make_optimizer(cfg, model.parameters()))
 
 
-def _make_core(cfg: TrainConfig) -> Callable:
+def _make_core(cfg: TrainConfig, mesh=None) -> Callable:
     """The step body shared by the per-step and whole-epoch functions:
     augment, forward (the towers in cfg.compute_dtype), f32 loss, backward,
-    clip, AdamW; the BatchNorm statistics update in the forward."""
+    clip, AdamW; the BatchNorm statistics update in the forward. Under a
+    mesh the batch is this rank's rows and the loss returned is this
+    rank's (_mean_over_data reduces it)."""
     tower_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    rows = {} if mesh is None else {"rows": mesh.rows}
 
     def core(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
         model, tx = state.model, state.tx
-        rgb = train_augment(generator, batch["rgb"], cfg.augment)
+        rgb = train_augment(generator, batch["rgb"], cfg.augment, **rows)
         model.train()
         tx.zero_grad()
         pred_rot, pred_trans = model(**model_inputs(cfg.variant, batch, rgb), generator=generator,
                                      tower_dtype=tower_dtype)
-        loss = pose_loss(pred_rot.float(), pred_trans.float(), batch["quat"], batch["trans"],
+        # f32, or the parameters' dtype where wider (a float64 module)
+        ld = torch.promote_types(pred_rot.dtype, torch.float32)
+        loss = pose_loss(pred_rot.to(ld), pred_trans.to(ld), batch["quat"], batch["trans"],
                          cfg.loss)
         loss.backward()
         grad_norm = tx.step()
@@ -280,40 +354,65 @@ def _make_core(cfg: TrainConfig) -> Callable:
     return core
 
 
+def _rows(batch, mesh, dim: int = 0):
+    if mesh is None:
+        return batch
+    from ..parallel.mesh import shard_batch
+
+    return shard_batch(batch, mesh, dim)
+
+
+def _mean_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A per-rank mean (the loss of its rows) -> the global batch's."""
+    if mesh is None:
+        return x
+    from ..parallel.collectives import all_reduce_
+
+    return all_reduce_(x.detach().clone(), mesh.data_group) / mesh.dp
+
+
 def make_train_step(cfg: TrainConfig, device_preprocess: bool = False,
-                    frame_hw: Optional[tuple] = None) -> Callable:
+                    frame_hw: Optional[tuple] = None, mesh=None) -> Callable:
     """The train step: (state, batch, generator) -> (state, metrics), with
     metrics {"loss", "grad_norm"} tensors on the card. With
     device_preprocess the signature is (state, frames, depth, batch,
     generator): batch is a metadata batch (DeviceFrameStore) and the step
     gathers and crops the frames on the card (packed words when frame_hw is
-    given)."""
-    core = _make_core(cfg)
+    given). mesh: the state is sharded on it and batch is the global batch
+    (see the module docstring)."""
+    core = _make_core(cfg, mesh)
+
+    def reduced(out):
+        state, metrics = out
+        return state, {**metrics, "loss": _mean_over_data(metrics["loss"], mesh)}
+
     if device_preprocess:
 
         def step_dev(state, frames, depth, batch, generator):
-            batch = to_device(batch, frames.device)
-            return core(state, expand_device_batch(frames, depth, batch, cfg.img_size, frame_hw),
-                        generator)
+            batch = _rows(to_device(batch, frames.device), mesh)
+            return reduced(core(state, expand_device_batch(frames, depth, batch, cfg.img_size,
+                                                           frame_hw), generator))
 
         return step_dev
 
     def step(state, batch, generator):
         device = next(state.model.parameters()).device
-        return core(state, decompress_batch(to_device(batch, device)), generator)
+        return reduced(core(state, _rows(decompress_batch(to_device(batch, device)), mesh),
+                            generator))
 
     return step
 
 
-def make_train_epoch(cfg: TrainConfig, frame_hw: Optional[tuple] = None) -> Callable:
+def make_train_epoch(cfg: TrainConfig, frame_hw: Optional[tuple] = None, mesh=None) -> Callable:
     """The whole-epoch train function: (state, frames, depth, meta_scan,
     generator) -> (state, losses [n_steps]). meta_scan's arrays are stacked
     [n_steps, B, ...] (DeviceFrameStore.epoch_meta); they go to the card in
-    one copy, and no step waits for the card."""
-    core = _make_core(cfg)
+    one copy, and no step waits for the card. Under a mesh meta_scan is
+    the global batches' and the losses are reduced once, at the end."""
+    core = _make_core(cfg, mesh)
 
     def epoch_fn(state, frames, depth, meta_scan, generator):
-        meta = to_device(meta_scan, frames.device)
+        meta = _rows(to_device(meta_scan, frames.device), mesh, dim=1)
         n_steps = meta["idx"].shape[0]
         losses = torch.empty(n_steps, dtype=torch.float32, device=frames.device)
         for i in range(n_steps):
@@ -321,12 +420,12 @@ def make_train_epoch(cfg: TrainConfig, frame_hw: Optional[tuple] = None) -> Call
                                         cfg.img_size, frame_hw)
             state, metrics = core(state, batch, generator)
             losses[i] = metrics["loss"]
-        return state, losses
+        return state, _mean_over_data(losses, mesh)
 
     return epoch_fn
 
 
-def make_eval_step(cfg: TrainConfig, evaluator: ObjectModels) -> Callable:
+def make_eval_step(cfg: TrainConfig, evaluator: ObjectModels, mesh=None) -> Callable:
     """The eval step: (state, batch) -> metrics. Eval-mode forward in f32
     (whatever cfg.compute_dtype),
     batched ADD metrics through the addmin kernel over the batch's valid
@@ -335,32 +434,42 @@ def make_eval_step(cfg: TrainConfig, evaluator: ObjectModels) -> Callable:
     intrinsics as deployment does (a second add_metrics call); the loss and
     the predictions. batch holds 'rgb' (uint8 or [0, 1] float), the
     variant's inputs, 'quat', 'trans', 'obj_id', 'center_orig', 'cam_K' and
-    'valid'."""
+    'valid'. Under a mesh each rank evaluates its rows of the global batch:
+    the metrics' sums and counts and the loss are reduced over the data
+    group and the predictions gathered, so every rank returns what the
+    one-process step returns."""
     points, diameters = evaluator.points, evaluator.diameters
+    group = None if mesh is None else mesh.data_group
     symmetric, present, num_valid = evaluator.symmetric, evaluator.present, evaluator.num_valid
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model = state.model
         model.eval()
-        batch = decompress_batch(to_device(batch, points.device))
+        batch = _rows(decompress_batch(to_device(batch, points.device)), mesh)
         rgb = eval_preprocess(batch["rgb"])
         pred_rot, pred_trans = model(**model_inputs(cfg.variant, batch, rgb))
         obj_ids = torch.where(batch["valid"], batch["obj_id"].long(),
                               torch.full_like(batch["obj_id"].long(), -1))
         gt_mat = quat_to_mat(batch["quat"])
         metrics = add_metrics(points, diameters, symmetric, present, quat_to_mat(pred_rot),
-                              pred_trans, gt_mat, batch["trans"], obj_ids, num_valid=num_valid)
+                              pred_trans, gt_mat, batch["trans"], obj_ids, num_valid=num_valid,
+                              group=group)
         if cfg.variant in ("rgb", "rgbd"):
             trans_deploy = pinhole_xy_from_z(pred_trans[:, 2], batch["center_orig"],
                                              batch["cam_K"])
             deploy = add_metrics(points, diameters, symmetric, present, quat_to_mat(pred_rot),
                                  trans_deploy, gt_mat, batch["trans"], obj_ids,
-                                 num_valid=num_valid)
+                                 num_valid=num_valid, group=group)
             metrics["add_01d_acc_deploy"] = deploy["add_01d_acc"]
         else:
             metrics["add_01d_acc_deploy"] = metrics["add_01d_acc"]
-        metrics["loss"] = pose_loss(pred_rot, pred_trans, batch["quat"], batch["trans"], cfg.loss)
+        metrics["loss"] = _mean_over_data(
+            pose_loss(pred_rot, pred_trans, batch["quat"], batch["trans"], cfg.loss), mesh)
+        if mesh is not None:
+            from ..parallel.collectives import gather_rows
+
+            pred_rot, pred_trans = gather_rows(pred_rot, group), gather_rows(pred_trans, group)
         metrics["pred_rot"] = pred_rot
         metrics["pred_trans"] = pred_trans
         return metrics

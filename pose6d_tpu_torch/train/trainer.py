@@ -27,9 +27,20 @@ the jitter is JAX's, drawn in JAX's order.
 
 pretrained_backbone= (a torchvision resnet50 .pth) loads the towers before
 the first step (models/pretrained.py), as JAX's create_train_state does.
-Not ported yet (ROADMAP A5, the next slice): `mesh=` (data and head
-parallelism, parallel/mesh.py) raises NotImplementedError. TensorBoard
-summaries, optional in JAX, are left out: the CSV is always written.
+TensorBoard summaries, optional in JAX, are left out: the CSV is always
+written.
+
+mesh= (a parallel.Mesh, parallel.make_mesh's) runs the Trainer in each
+rank's process (torchrun launches them; the caller has
+initialized torch.distributed): the state is sharded on the mesh
+(parallel.shard_state), every rank holds the resident split on its own card
+(JAX replicates it) and draws the same shuffle, jitter and random streams,
+each step and each validation batch takes the rank's rows of the global
+batch (train/loop.py), and the validation metrics are reduced over the data
+group, so every rank makes the same decisions. Rank 0 alone prints, writes
+metrics.csv and writes the checkpoints, in the one-process layout (every
+rank waits for them); a resume cuts them to each rank's slices, so a run
+resumes across mesh shapes, or without one.
 """
 
 from __future__ import annotations
@@ -61,9 +72,10 @@ class Trainer:
                  seed: int = 0, num_workers: int = 8, profile_dir: Optional[str] = None,
                  pretrained_backbone: Optional[str] = None, cache_decoded: bool = False,
                  mesh=None, device_preprocess: bool = False, device=DEFAULT_DEVICE):
-        if mesh is not None:
-            raise NotImplementedError("Trainer mesh=: data / head parallelism "
-                                      "(parallel/mesh.py) is the next slice (ROADMAP A5)")
+        if mesh is not None and cfg.batch_size % mesh.dp:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by data axis {mesh.dp}")
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.is_primary
         self.cfg = cfg
         self.seed = seed
         self.profile_dir = profile_dir
@@ -80,20 +92,24 @@ class Trainer:
         self.frame_store = None
         if device_preprocess:
             self.frame_store = DeviceFrameStore.from_loader(self.train_loader, device=self.device)
-            print(f"device_preprocess: {len(self.frame_store)} frames resident "
+            self._print(f"device_preprocess: {len(self.frame_store)} frames resident "
                   f"({self.frame_store.nbytes() / 2**20:.1f} MiB on {self.device})")
 
         self.evaluator = ADDEvaluator(mesh_dir, device=self.device)
         self.state = create_train_state(cfg, seed=seed, device=self.device,
                                         pretrained_backbone=pretrained_backbone)
+        if mesh is not None:
+            from ..parallel import shard_state
+
+            self.state = shard_state(self.state, mesh)
         if device_preprocess:
             self.train_step = None
             self.train_epoch_fn = make_train_epoch(
-                cfg, frame_hw=(self.frame_store.frame_h, self.frame_store.frame_w))
+                cfg, frame_hw=(self.frame_store.frame_h, self.frame_store.frame_w), mesh=mesh)
         else:
-            self.train_step = make_train_step(cfg)
+            self.train_step = make_train_step(cfg, mesh=mesh)
             self.train_epoch_fn = None
-        self.eval_step = make_eval_step(cfg, self.evaluator)
+        self.eval_step = make_eval_step(cfg, self.evaluator, mesh=mesh)
 
         self.scheduler = ReduceLROnPlateau(lr=cfg.learning_rate, factor=cfg.plateau_factor,
                                            patience=cfg.plateau_patience, min_lr=cfg.min_lr)
@@ -103,6 +119,10 @@ class Trainer:
         self.best_deploy_acc = 0.0
         self.epoch_timing: Optional[dict] = None  # the last device epoch's split, seconds
         self._metrics_path = os.path.join(save_dir, "metrics.csv")
+
+    def _print(self, *args, **kwargs) -> None:
+        if self.primary:
+            print(*args, **kwargs)
 
     def close(self) -> None:
         """Stop the loaders' threads."""
@@ -118,7 +138,7 @@ class Trainer:
         if restored is None:
             restored = self.ckpt.restore(self.state, name=BEST_NAME)
             if restored is not None:
-                print("`last` checkpoint unreadable; resuming from `best`")
+                self._print("`last` checkpoint unreadable; resuming from `best`")
         if restored is None:
             return False
         meta = restored["meta"]
@@ -126,7 +146,7 @@ class Trainer:
         self.best_acc = float(meta["best_acc"])
         self.best_deploy_acc = float(meta.get("best_deploy_acc", 0.0))
         self.scheduler.load_state_dict(restored["scheduler"])
-        print(f"Resumed at epoch {self.start_epoch}, best accuracy: {self.best_acc:.2f}%")
+        self._print(f"Resumed at epoch {self.start_epoch}, best accuracy: {self.best_acc:.2f}%")
         return True
 
     # ------------------------------------------------------------------- train
@@ -153,7 +173,7 @@ class Trainer:
                 # (its launches enqueued); exec+fetch: the card finishing
                 self.epoch_timing = {"meta_s": t_meta - t0, "dispatch_s": t_disp - t_meta,
                                      "exec_fetch_s": t_exec - t_disp}
-                print(f"  [epoch-timing] meta {t_meta - t0:.2f}s | dispatch "
+                self._print(f"  [epoch-timing] meta {t_meta - t0:.2f}s | dispatch "
                       f"{t_disp - t_meta:.2f}s | exec+fetch {t_exec - t_disp:.2f}s", flush=True)
         else:
             step_losses = []
@@ -185,7 +205,7 @@ class Trainer:
     def _profiled(self, epoch: int):
         """torch.profiler over the second epoch of this run, when profile_dir
         is set; its trace is written there as trace_epoch<N>.json."""
-        if not self.profile_dir or epoch != self.start_epoch + 1:
+        if not self.profile_dir or epoch != self.start_epoch + 1 or not self.primary:
             return None
         from torch.profiler import ProfilerActivity, profile
 
@@ -205,7 +225,8 @@ class Trainer:
         # flush can leave it empty)
         write_header = (not os.path.exists(self._metrics_path)
                         or os.path.getsize(self._metrics_path) == 0)
-        with open(self._metrics_path, "a", newline="") as fcsv:
+        # rank 0 writes the log; the other ranks write nowhere
+        with open(self._metrics_path if self.primary else os.devnull, "a", newline="") as fcsv:
             writer = csv.DictWriter(fcsv, fieldnames=LOG_FIELDS, extrasaction="ignore")
             if write_header:
                 writer.writeheader()
@@ -225,25 +246,25 @@ class Trainer:
                 row = {"epoch": epoch, "lr": lr, **tm, **vm}
                 writer.writerow(row)
                 fcsv.flush()
-                print(f"Epoch {epoch + 1}/{epochs}  Loss: {tm['train_loss']:.4f} | "
+                self._print(f"Epoch {epoch + 1}/{epochs}  Loss: {tm['train_loss']:.4f} | "
                       f"ADD: {vm['val_add']:.1f}mm | ADD-0.1d: {vm['val_acc']:.1f}% | "
                       f"LR: {lr:.2e} | {tm['imgs_per_sec']:.0f} img/s")
                 is_best = vm["val_acc"] > self.best_acc
                 if is_best:
                     self.best_acc = vm["val_acc"]
-                    print(f"  New best model saved (ADD-0.1d: {self.best_acc:.2f}%)")
+                    self._print(f"  New best model saved (ADD-0.1d: {self.best_acc:.2f}%)")
                 is_best_deploy = (vm["val_acc_deploy"] > self.best_deploy_acc
                                   or not self.ckpt.has_checkpoint(BEST_DEPLOY_NAME))
                 if is_best_deploy:
                     self.best_deploy_acc = max(self.best_deploy_acc, vm["val_acc_deploy"])
-                    print("  New deployment-aligned best saved "
+                    self._print("  New deployment-aligned best saved "
                           f"(corrected ADD-0.1d: {self.best_deploy_acc:.2f}%)")
                 self.ckpt.save(self.state, epoch, self.best_acc, vm["val_acc"], vm["val_add"],
                                self.scheduler.state_dict(), is_best,
                                best_deploy_acc=self.best_deploy_acc,
                                is_best_deploy=is_best_deploy)
                 if early_stop_acc is not None and self.best_acc >= early_stop_acc:
-                    print(f"  Early stop: ADD-0.1d {self.best_acc:.2f}% >= {early_stop_acc}%")
+                    self._print(f"  Early stop: ADD-0.1d {self.best_acc:.2f}% >= {early_stop_acc}%")
                     break
-        print(f"\nTraining complete. Best ADD-0.1d: {self.best_acc:.2f}%")
+        self._print(f"\nTraining complete. Best ADD-0.1d: {self.best_acc:.2f}%")
         return self.best_acc

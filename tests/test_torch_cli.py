@@ -243,9 +243,71 @@ def test_setup_data_zip_branch(tmp_path):
 
 
 def test_train_mesh_is_the_next_slice(workflow):
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+    """--mesh is ported (tests/test_torch_parallel_trainer.py runs it under
+    torchrun); launched without torchrun's environment it exits naming
+    torchrun."""
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         run_cli("train", ["--variant", "rgb", "--data-root", workflow["data"], "--mesh-dir",
                           workflow["models"], "--mesh", "2,1", "--device", "cpu"])
+
+
+def test_compare_visual_writes_the_grids(workflow, tmp_path):
+    """GT beside each trained variant (here rgb): one PNG per sample, two
+    frame-wide panels, the ground-truth box drawn in green on both."""
+    from pose6d_tpu_torch.data.png import read_png
+
+    out_dir = str(tmp_path / "grids")
+    text = run_cli("compare_visual", ["--data-root", workflow["data"], "--mesh-dir",
+                                      workflow["models"], "--weights-root", workflow["wd"],
+                                      "--num-samples", 2, "--out-dir", out_dir, "--img-size",
+                                      POSE, "--device", "cpu"])
+    assert "panels: GT, rgb" in text
+    pngs = sorted(os.listdir(out_dir))
+    assert len(pngs) == 2 and all(p.startswith("comparison_") for p in pngs)
+    grid = read_png(os.path.join(out_dir, pngs[0]))
+    assert grid.shape == (480, 2 * 640, 3)
+    green = (grid[..., 0] == 0) & (grid[..., 1] == 255) & (grid[..., 2] == 0)
+    assert green[:, :640].any() and green[:, 640:].any()
+
+
+def test_visualize_yolo_writes_the_boxes(workflow, tmp_path):
+    from pose6d_tpu_torch.data.png import read_png
+
+    out_dir = str(tmp_path / "yolo")
+    text = run_cli("visualize_yolo", ["--data-root", workflow["data"], "--yolo-weights",
+                                      os.path.join(workflow["wd"], "yolo"), "--num-images", 1,
+                                      "--out-dir", out_dir, "--device", "cpu"])
+    assert f"saved {os.path.join(out_dir, 'yolo_det_0.png')}" in text
+    assert read_png(os.path.join(out_dir, "yolo_det_0.png")).shape == (640, 640, 3)
+
+
+def test_package_and_setup_weights(workflow, tmp_path):
+    """package_weights zips the save directories it finds under --root
+    (here rgb's, with the workflow's metrics.csv and a small stand-in for
+    its checkpoint, and the detector's); setup_weights unpacks the zip,
+    finds both checkpoints and names the three it lacks; without the zip
+    it says where to put it and downloads nothing."""
+    root = tmp_path / "root"
+    for d, name in (("weights_rgb", "last.pt"), (os.path.join("runs", "detect", "linemod_yolo"),
+                                                  "best.pt")):
+        os.makedirs(root / d)
+        torch.save({"model": {"w": torch.arange(4.0)}}, str(root / d / name))
+    with open(os.path.join(workflow["wd"], "weights_rgb", "metrics.csv"), "rb") as f:
+        (root / "weights_rgb" / "metrics.csv").write_bytes(f.read())
+    zip_path = str(tmp_path / "pretrained_weights.zip")
+    text = run_cli("package_weights", ["--root", root, "--out", zip_path])
+    assert "packaged weights_rgb" in text and "packaged runs/detect/linemod_yolo" in text
+    with zipfile.ZipFile(zip_path) as zf:
+        names = set(zf.namelist())
+    assert names == {"weights_rgb/last.pt", "weights_rgb/metrics.csv",
+                     "runs/detect/linemod_yolo/best.pt"}
+    dest = str(tmp_path / "unpacked")
+    text = run_cli("setup_weights", ["--zip", zip_path, "--dest", dest])
+    assert torch.equal(torch.load(os.path.join(dest, "weights_rgb", "last.pt"))["model"]["w"],
+                       torch.arange(4.0))
+    assert text.count("expected checkpoint missing") == 3 and "weights_rgb/" not in text
+    with pytest.raises(SystemExit, match="nothing is downloaded"):
+        run_cli("setup_weights", ["--zip", str(tmp_path / "absent.zip"), "--dest", dest])
 
 
 def test_compute_clis_default_to_the_card(workflow):

@@ -19,12 +19,14 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "torchvision", "ultralytic
 # the detector-training slice, named so that a rename cannot drop it from the probe
 DETECTOR_MODULES = ("pose6d_tpu_torch.models.yolo.loss", "pose6d_tpu_torch.models.yolo.train",
                     "pose6d_tpu_torch.data.detection")
-# the interop, generator, utils and CLI slice, named for the same reason
+# the interop, generator, utils, parallel and CLI slices, named for the same reason
 WORKFLOW_MODULES = tuple(f"pose6d_tpu_torch.{m}" for m in (
     "models.convert", "models.convert_posenet", "models.yolo.convert", "models.pretrained",
     "data.synthetic", "data.raster", "utils", "utils.camera", "utils.mesh", "utils.viz", "cli",
     "cli.setup_data", "cli.prepare_yolo", "cli.train_yolo", "cli.train", "cli.compare",
-    "cli.infer", "cli.eval_e2e", "cli.convert_reference_weights", "cli.demo"))
+    "cli.infer", "cli.eval_e2e", "cli.convert_reference_weights", "cli.demo",
+    "parallel", "parallel.mesh", "parallel.collectives", "parallel.heads",
+    "cli.compare_visual", "cli.visualize_yolo", "cli.package_weights", "cli.setup_weights"))
 
 _PROBE = """
 import importlib, importlib.abc, sys

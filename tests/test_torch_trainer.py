@@ -7,7 +7,8 @@ accuracies equal, the loss within 1e-5); a 1-epoch fit on both input
 paths writes metrics.csv under the JAX header and the three checkpoints;
 resume restores epoch, best values, scheduler, model and optimizer state
 exactly, falls back to `best` when `last` is unreadable; early_stop_acc,
-profile_dir, mesh= (not ported) and a missing pretrained_backbone raise."""
+profile_dir, a mesh= whose data axis does not divide the batch and a
+missing pretrained_backbone raise."""
 
 import csv
 import os
@@ -171,12 +172,21 @@ def test_resume_falls_back_to_best_and_profiles(trees, workdir):
     fresh.close()
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"pretrained_backbone": "r50.pth"}])
+def _mesh_of_three():
+    from pose6d_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, Mesh
+
+    return Mesh({DATA_AXIS: 3, MODEL_AXIS: 1}, 0, 0, 0, None, None, None)
+
+
+@pytest.mark.parametrize("kw", [{"mesh": "three"}, {"pretrained_backbone": "r50.pth"}])
 def test_unported_options_raise(trees, workdir, kw):
-    """mesh= is the next slice (ROADMAP A5) and raises NotImplementedError;
-    pretrained_backbone= is ported (tests/test_torch_pretrained.py) and
-    raises only for a file that is not there."""
-    err = (NotImplementedError, "A5") if "mesh" in kw else (FileNotFoundError, "r50.pth")
+    """mesh= is ported (tests/test_torch_parallel_trainer.py) and raises,
+    as JAX's Trainer does, when its data axis (3) does not divide the batch
+    (32); pretrained_backbone= is ported (tests/test_torch_pretrained.py)
+    and raises only for a file that is not there."""
+    if "mesh" in kw:
+        kw = {"mesh": _mesh_of_three()}
+    err = (ValueError, "not divisible") if "mesh" in kw else (FileNotFoundError, "r50.pth")
     with pytest.raises(err[0], match=err[1]):
         Trainer(get_preset("rgb", img_size=S), trees["fit"]["data"], trees["fit"]["models"],
                 str(workdir / "save"), device="cpu", **kw)
