@@ -167,13 +167,22 @@ Phases, each printed on its own line with its seconds:
      rank must launch the gather and addmin at 32 and the stem and layer1
      at 8; prints the gloo steps' ms beside the one-process steps' (CUDA
      events) as smoke readings;
- 15. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add, train, CLI and mesh runs, on the row of the
-     kernel and the batch they ran at (the stem and layer1 at 32 in phase
-     6, at 8 elsewhere; addmin at 8 in phases 9 and 13 and at 32 in phases
-     9, 10, 11, 13 and 14; the gather at 32 in phases 10, 11, 13 and 14;
-     stages 3-4 at 8 in phase 13 only); a launch at a batch with no row
-     fails the run. The int8 convolution is
+ 15. learning: tests/test_torch_learning.py at full width on the card
+     (phase_learning): the rgb variant at 224 from one seeded init, 60
+     steps on one fixed batch of 8 rotations, once in f32 and once with
+     bf16 towers, each loss more than halving and the geodesic distance
+     after it under 1.6 rad, ms/step by CUDA events; then cli.parity_run
+     in this process on 2 objects x 60 frames for 2 epochs
+     (rgbd_geometric, wide rotation head, 224, batch 32, the split
+     resident): results.json, 2 finite metrics.csv rows, and the gather
+     (2 per step) and addmin (1 per val batch) launches counted from 0;
+ 16. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice, add, train, CLI, mesh and learning runs, on the
+     row of the kernel and the batch they ran at (the stem and layer1 at 32
+     in phase 6, at 8 elsewhere; addmin at 8 in phases 9 and 13 and at 32
+     in phases 9, 10, 11, 13, 14 and 15; the gather at 32 in phases 10, 11,
+     13, 14 and 15; stages 3-4 at 8 in phase 13 only); a launch at a batch
+     with no row fails the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
 
@@ -2417,7 +2426,8 @@ def mesh_rank(rank: int, job: dict) -> None:
     from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
     from pose6d_tpu_torch.models.posenet import PoseNetConfig
     from pose6d_tpu_torch.models.yolo.model import YoloConfig
-    from pose6d_tpu_torch.parallel import gather_params, gather_state, make_mesh, param_spec
+    from pose6d_tpu_torch.parallel import (gather_params, gather_state, make_mesh, param_spec,
+                                           shard_batch)
     from pose6d_tpu_torch.train import loop as tl
     from pose6d_tpu_torch.train.trainer import Trainer
 
@@ -2458,7 +2468,7 @@ def mesh_rank(rank: int, job: dict) -> None:
             ev = eval_batch(store, meta, dev)
             tally(32)
             m = tl.make_eval_step(tl.TrainConfig(variant="rgbd", batch_size=batch), models,
-                                  mesh)(state, ev)
+                                  mesh)(state, shard_batch(ev, mesh))
             tally(batch // mesh.dp)
             check(all(bool(torch.isfinite(v).all()) for v in m.values()),
                   f"{shape} eval metrics not finite")
@@ -2698,6 +2708,121 @@ def phase_mesh(store, pipe, frames, depths, smi: str):
     return counts, out
 
 
+LEARN_BATCH, LEARN_STEPS, LEARN_TIMED_FROM = 8, 60, 10  # the learning test's; steps timed after 10
+LEARN_IMG = 224        # the test's 64 at full width
+LEARN_GEO_MAX = 1.6    # rad, after the steps (random rotations: ~2.2)
+PARITY_ARGS = ["--objects", 2, "--frames", 60, "--epochs", 2, "--variants", "rgbd_geometric",
+               "--rot-head-wide"]
+PARITY_RUN = "rgbd_geometric_widehead"
+
+
+def learning_run(init: dict, compute_dtype: str, device) -> dict:
+    """tests/test_torch_learning.py at full width: the rgb variant at 224
+    from the state_dict `init`, LEARN_STEPS steps on one fixed batch of
+    LEARN_BATCH distinct rotations (seeded), lr 3e-4, augmentation off,
+    each step's generator seeded alike; towers in compute_dtype (bf16:
+    autocast, as parity_run --bf16). The loss must more than halve and the
+    geodesic distance afterwards (f32 eval) stay under LEARN_GEO_MAX.
+    Returns the losses, the distance and ms/step (CUDA events over the
+    steps after LEARN_TIMED_FROM)."""
+    from scipy.spatial.transform import Rotation
+
+    from pose6d_tpu_torch.geometry.quat import quat_normalize
+    from pose6d_tpu_torch.losses.pose_loss import geodesic_distance
+    from pose6d_tpu_torch.models.posenet import PoseNet
+    from pose6d_tpu_torch.ops.augment import AugmentConfig, eval_preprocess
+    from pose6d_tpu_torch.train import loop as tl
+
+    cfg = tl.TrainConfig(variant="rgb", img_size=LEARN_IMG, batch_size=LEARN_BATCH,
+                         learning_rate=3e-4, compute_dtype=compute_dtype,
+                         augment=AugmentConfig(brightness=0.0, contrast=0.0, saturation=0.0,
+                                               hue=0.0, grayscale_p=0.0, erase_p=0.0))
+    with torch.device("meta"):
+        model = PoseNet(tl.pose_config(cfg))
+    model = model.to_empty(device="cpu")
+    model.load_state_dict(init, strict=True)
+    state = tl.create_train_state(cfg, model=model, device=device)
+    step = tl.make_train_step(cfg)
+    rng = np.random.default_rng(SEED + 19)
+    batch = tl.to_device({
+        "rgb": rng.uniform(0, 1, size=(LEARN_BATCH, LEARN_IMG, LEARN_IMG, 3)).astype(np.float32),
+        "quat": Rotation.random(LEARN_BATCH, random_state=1).as_quat().astype(np.float32),
+        "trans": np.tile(np.array([[0, 0, 0.8]], np.float32), (LEARN_BATCH, 1)),
+        "obj_id": np.zeros(LEARN_BATCH, np.int32), "valid": np.ones(LEARN_BATCH, bool)}, device)
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(LEARN_STEPS):
+        if i == LEARN_TIMED_FROM:
+            start.record()
+        state, m = step(state, batch, torch.Generator(device=device).manual_seed(42))
+        losses.append(m["loss"])
+    end.record()
+    end.synchronize()
+    losses = torch.stack(losses).cpu().numpy()
+    model = state.model.eval()
+    with torch.no_grad():
+        pred_rot, _ = model(rgb=eval_preprocess(batch["rgb"]))
+    geo = float(geodesic_distance(pred_rot, quat_normalize(batch["quat"])))
+    what = f"learning {compute_dtype}"
+    check(bool(np.isfinite(losses).all()), f"{what}: losses not finite: {losses}")
+    check(losses[-1] < 0.5 * losses[0], f"{what}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                                         f"not below half")
+    check(geo < LEARN_GEO_MAX, f"{what}: geodesic {geo:.3f} rad after {LEARN_STEPS} steps")
+    return {"losses": losses, "geo": geo,
+            "ms_step": start.elapsed_time(end) / (LEARN_STEPS - LEARN_TIMED_FROM)}
+
+
+def phase_learning(smi: str, device: str = "cuda"):
+    """The port learns, on the card: learning_run in f32 and in bf16 from
+    one seeded init (posenet.flax_init_, SEED); then cli.parity_run in this
+    process (run_cli) at PARITY_ARGS, the fixture cut to 2 objects x 60
+    frames and 2 epochs at full width (224, batch 32, the train split
+    resident): results.json holds the run, metrics.csv 2 rows of finite
+    values, and the gather (RGB and depth words, per step) and addmin
+    (once per val batch: rgbd_geometric evaluates its pinhole translation
+    once) kernels ran, counted from 0 just before the run. Its workdir
+    under _build/ is deleted at the end. parity_run runs on its default
+    device, the card; `device` is that of the learning runs. Returns
+    {(kernel, 32): launches} and the readings."""
+    import csv
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.models.posenet import PoseNet, PoseNetConfig, flax_init_
+
+    dev = torch.device(device)
+    init = flax_init_(PoseNet(PoseNetConfig(variant="rgb", img_size=LEARN_IMG)), SEED).state_dict()
+    runs = {dt: learning_run(init, dt, dev) for dt in ("float32", "bfloat16")}
+    del init
+    for dt, r in runs.items():
+        log(f"  learning {dt}: loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} in "
+            f"{LEARN_STEPS} steps, geodesic {r['geo']:.3f} rad, {r['ms_step']:.3f} ms/step "
+            f"(CUDA events, steps {LEARN_TIMED_FROM + 1}-{LEARN_STEPS}) on {smi}")
+
+    wd = os.path.join(_build.BUILD_DIR, "smoke_parity")
+    shutil.rmtree(wd, ignore_errors=True)
+    try:
+        _build.launch_counts.clear()
+        text, secs = run_cli("parity_run", ["--workdir", wd] + PARITY_ARGS)
+        counts = dict(_build.launch_counts)
+        results = json.load(open(os.path.join(wd, "results.json")))
+        check(list(results) == [PARITY_RUN], f"parity_run results: {list(results)}")
+        with open(os.path.join(wd, f"weights_{PARITY_RUN}", "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 2 and all(np.isfinite(float(v)) for r in rows for v in r.values()),
+              f"parity_run metrics.csv: {rows}")
+        n_frames = 2 * 60
+        steps = 2 * (n_frames * 8 // 10 // 32)   # the train split's full batches, 2 epochs
+        val_batches = 2 * -(-(n_frames // 10) // 32)
+        want = {"gather_rows_u32": 2 * steps, "pairwise_min_dist": val_batches}
+        check(counts == want, f"parity_run launches {counts}, expected {want}")
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    log(f"  parity_run {' '.join(map(str, PARITY_ARGS))}: {secs:.1f} s, val ADD-0.1d "
+        + " / ".join(f"{float(r['val_acc']):.2f}" for r in rows) + "% by epoch; launches "
+        + ", ".join(f"{k}@32 {v}" for k, v in sorted(counts.items())))
+    return {(k, 32): v for k, v in counts.items()}, {"runs": runs, "parity_s": secs}
+
+
 def setup(rng, rng_new, device):
     """Seeded full-width weights; per path (rgbd with the stem and layer1
     kernels, rgbd_geometric with the stem and stage 1-2 kernels, rgb with
@@ -2931,13 +3056,26 @@ def main() -> int:
         + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(mesh_counts.items()))
         + f" ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    learn_counts, learn = phase_learning(smi)
+    for (k, batch), v in sorted(learn_counts.items()):
+        count({k: v}, batch)
+    log(f"[phase 15 learning] the rgb step at {LEARN_IMG}, batch {LEARN_BATCH}, {LEARN_STEPS} "
+        f"steps on one batch on {smi}: "
+        + ", ".join(f"{dt} loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, geodesic "
+                    f"{r['geo']:.3f} rad, {r['ms_step']:.3f} ms/step"
+                    for dt, r in learn["runs"].items())
+        + f"; parity_run {learn['parity_s']:.1f} s, launches "
+        + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(learn_counts.items()))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
     # the b32 addmin row: phase 3's inputs and the eval step's
     r = by_id[("pairwise_min_dist", 32)]
     r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 15 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 16 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())

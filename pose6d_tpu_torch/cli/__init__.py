@@ -15,6 +15,10 @@ package's scripts/*.py), each run as `python -m pose6d_tpu_torch.cli.<name>`:
   visualize_yolo             the detector's boxes on random test frames, PNGs
   package_weights            the trained weights into one zip
   setup_weights              unpack that zip and check the layout (no download)
+  parity_run                 train variants to saturation on the synthetic fixture
+  parity_e2e                 the detector in the loop over parity_run's variants
+  probe_components           parity_run's val error split into rotation, xy and z
+  reproduce                  the whole chain and the gate against the reference's table
 
 train --mesh DP,TP runs under torchrun, one process per rank (cli/train.py).
 

@@ -110,22 +110,31 @@ class LineMODPoseLoader:
         return out
 
     def batches(self, batch_size: int, rng: np.random.Generator, shuffle: bool = True,
-                drop_remainder: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+                drop_remainder: bool = True,
+                rows: Optional[slice] = None) -> Iterator[Dict[str, np.ndarray]]:
         """Stacked fixed-shape batches. With drop_remainder a last short
         batch is dropped (train); otherwise it is padded by repeating its
-        last sample and 'valid' marks the real rows (eval)."""
+        last sample and 'valid' marks the real rows (eval).
+
+        rows (a rank's parallel.local_rows under a mesh) loads and crops
+        only those rows of each global batch. The shuffle and the samples'
+        seeds are still drawn for the whole global batch, so the rows are
+        those of the unsliced batch, jitter included, and rng ends where
+        it would without rows."""
         order = np.arange(len(self.samples))
         if shuffle:
             rng.shuffle(order)
 
         def make_batch(idxs, n_valid):
             seeds = rng.integers(0, 2**31 - 1, size=len(idxs))
+            valid = np.zeros(len(idxs), dtype=bool)
+            valid[:n_valid] = True
+            if rows is not None:
+                idxs, seeds, valid = idxs[rows], seeds[rows], valid[rows]
             jobs = list(zip(idxs, seeds))
             load = lambda a: self.load_sample(a[0], np.random.default_rng(a[1]))  # noqa: E731
             items = list(self._pool.map(load, jobs)) if self._pool else [load(a) for a in jobs]
             batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
-            valid = np.zeros(len(idxs), dtype=bool)
-            valid[:n_valid] = True
             batch["valid"] = valid
             return batch
 

@@ -151,10 +151,12 @@ def _transform_points(points, rot_mat, trans):
 def pairwise_min_dist(pred_pts: torch.Tensor, gt_pts: torch.Tensor) -> torch.Tensor:
     """Nearest-GT distance per predicted point [B, P], with per-sample
     centring (translation-invariant; keeps f32 away from cancellation at
-    metre offsets)."""
+    metre offsets). The search is the f32 kernel's; float64 clouds (a
+    float64 module's evaluation) are searched in f32 and the distances
+    given back in float64."""
     center = gt_pts.mean(dim=1, keepdim=True)
-    return pairwise_min_dist_kernel((pred_pts - center).contiguous(),
-                                    (gt_pts - center).contiguous())
+    return pairwise_min_dist_kernel((pred_pts - center).float().contiguous(),
+                                    (gt_pts - center).float().contiguous()).to(pred_pts.dtype)
 
 
 class NearestDistance(torch.autograd.Function):

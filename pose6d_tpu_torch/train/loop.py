@@ -29,10 +29,14 @@ does; parameters, optimizer state, BatchNorm running statistics, the heads
 and the loss stay f32. The eval step runs f32 whatever the compute dtype.
 The Trainer (train/trainer.py) drives these steps over a LineMOD split.
 
-Under a mesh (parallel/mesh.py; the state from parallel.shard_state) every
-rank is given the global batch, or the global metadata batch, and takes its
-rows: the gather kernel expands only those. The augmentation and dropout
-draws are made at the global batch and each rank keeps its block;
+Under a mesh (parallel/mesh.py; the state from parallel.shard_state) the
+resident steps (make_train_epoch, and make_train_step with
+device_preprocess) are given the global metadata batch and take the rank's
+rows: the gather kernel expands only those. The host-path train step and
+the eval step are given the rank's rows alone (parallel.local_rows of the
+global batch; the host loader decodes only those, LineMODPoseLoader.batches'
+rows=). The augmentation and dropout draws are made at the global batch
+and each rank keeps its block;
 BatchNorm reduces its statistics over the data group; the optimizer
 all-reduces the gradients as a mean (PoseOptimizer says over which ranks)
 and sums the squares of the head shards over the model group for the
@@ -378,8 +382,9 @@ def make_train_step(cfg: TrainConfig, device_preprocess: bool = False,
     device_preprocess the signature is (state, frames, depth, batch,
     generator): batch is a metadata batch (DeviceFrameStore) and the step
     gathers and crops the frames on the card (packed words when frame_hw is
-    given). mesh: the state is sharded on it and batch is the global batch
-    (see the module docstring)."""
+    given). mesh: the state is sharded on it; the metadata batch of
+    device_preprocess is the global batch, the host path's batch this
+    rank's rows of it (see the module docstring)."""
     core = _make_core(cfg, mesh)
 
     def reduced(out):
@@ -389,7 +394,7 @@ def make_train_step(cfg: TrainConfig, device_preprocess: bool = False,
     if device_preprocess:
 
         def step_dev(state, frames, depth, batch, generator):
-            batch = _rows(to_device(batch, frames.device), mesh)
+            batch = _rows(to_device(batch, frames.device), mesh)  # global -> local
             return reduced(core(state, expand_device_batch(frames, depth, batch, cfg.img_size,
                                                            frame_hw), generator))
 
@@ -397,8 +402,7 @@ def make_train_step(cfg: TrainConfig, device_preprocess: bool = False,
 
     def step(state, batch, generator):
         device = next(state.model.parameters()).device
-        return reduced(core(state, _rows(decompress_batch(to_device(batch, device)), mesh),
-                            generator))
+        return reduced(core(state, decompress_batch(to_device(batch, device)), generator))
 
     return step
 
@@ -434,10 +438,10 @@ def make_eval_step(cfg: TrainConfig, evaluator: ObjectModels, mesh=None) -> Call
     intrinsics as deployment does (a second add_metrics call); the loss and
     the predictions. batch holds 'rgb' (uint8 or [0, 1] float), the
     variant's inputs, 'quat', 'trans', 'obj_id', 'center_orig', 'cam_K' and
-    'valid'. Under a mesh each rank evaluates its rows of the global batch:
-    the metrics' sums and counts and the loss are reduced over the data
-    group and the predictions gathered, so every rank returns what the
-    one-process step returns."""
+    'valid'. Under a mesh batch is this rank's rows of the global batch
+    (parallel.local_rows): the metrics' sums and counts and the loss are
+    reduced over the data group and the predictions gathered, so every rank
+    returns what the one-process step returns on the global batch."""
     points, diameters = evaluator.points, evaluator.diameters
     group = None if mesh is None else mesh.data_group
     symmetric, present, num_valid = evaluator.symmetric, evaluator.present, evaluator.num_valid
@@ -446,20 +450,22 @@ def make_eval_step(cfg: TrainConfig, evaluator: ObjectModels, mesh=None) -> Call
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model = state.model
         model.eval()
-        batch = _rows(decompress_batch(to_device(batch, points.device)), mesh)
+        batch = decompress_batch(to_device(batch, points.device))
         rgb = eval_preprocess(batch["rgb"])
         pred_rot, pred_trans = model(**model_inputs(cfg.variant, batch, rgb))
         obj_ids = torch.where(batch["valid"], batch["obj_id"].long(),
                               torch.full_like(batch["obj_id"].long(), -1))
-        gt_mat = quat_to_mat(batch["quat"])
-        metrics = add_metrics(points, diameters, symmetric, present, quat_to_mat(pred_rot),
-                              pred_trans, gt_mat, batch["trans"], obj_ids, num_valid=num_valid,
-                              group=group)
+        # f32, or a float64 module's float64 (no copy in f32)
+        ld = torch.promote_types(pred_rot.dtype, torch.float32)
+        pts, diam, gt_trans = points.to(ld), diameters.to(ld), batch["trans"].to(ld)
+        gt_mat = quat_to_mat(batch["quat"].to(ld))
+        metrics = add_metrics(pts, diam, symmetric, present, quat_to_mat(pred_rot), pred_trans,
+                              gt_mat, gt_trans, obj_ids, num_valid=num_valid, group=group)
         if cfg.variant in ("rgb", "rgbd"):
             trans_deploy = pinhole_xy_from_z(pred_trans[:, 2], batch["center_orig"],
                                              batch["cam_K"])
-            deploy = add_metrics(points, diameters, symmetric, present, quat_to_mat(pred_rot),
-                                 trans_deploy, gt_mat, batch["trans"], obj_ids,
+            deploy = add_metrics(pts, diam, symmetric, present, quat_to_mat(pred_rot),
+                                 trans_deploy, gt_mat, gt_trans, obj_ids,
                                  num_valid=num_valid, group=group)
             metrics["add_01d_acc_deploy"] = deploy["add_01d_acc"]
         else:

@@ -34,11 +34,14 @@ mesh= (a parallel.Mesh, parallel.make_mesh's) runs the Trainer in each
 rank's process (torchrun launches them; the caller has
 initialized torch.distributed): the state is sharded on the mesh
 (parallel.shard_state), every rank holds the resident split on its own card
-(JAX replicates it) and draws the same shuffle, jitter and random streams,
-each step and each validation batch takes the rank's rows of the global
-batch (train/loop.py), and the validation metrics are reduced over the data
-group, so every rank makes the same decisions. Rank 0 alone prints, writes
-metrics.csv and writes the checkpoints, in the one-process layout (every
+(JAX replicates it: each rank's gather can reach any frame) and draws the
+same shuffle, jitter and random streams. A resident step takes the rank's
+rows of the global metadata batch (train/loop.py); the host loaders (the
+host path's train batches, and validation on both paths) decode and crop
+only the rank's rows, parallel.local_rows, of each global batch. The
+validation metrics are reduced over the data group, so every rank makes the
+same decisions. Rank 0 alone prints, writes metrics.csv and writes the
+checkpoints, in the one-process layout (every
 rank waits for them); a resume cuts them to each rank's slices, so a run
 resumes across mesh shapes, or without one.
 """
@@ -80,6 +83,12 @@ class Trainer:
         self.seed = seed
         self.profile_dir = profile_dir
         self.device = torch.device(device)
+        # this rank's rows of each global batch, which its loaders decode
+        self.rows = None
+        if mesh is not None:
+            from ..parallel.mesh import local_rows
+
+            self.rows = local_rows(cfg.batch_size, mesh)
         flavor = "rgbd" if cfg.variant.startswith("rgbd") else "rgb"
         self.train_loader = LineMODPoseLoader(
             data_root, mode="train", flavor=flavor, img_size=cfg.img_size,
@@ -177,7 +186,8 @@ class Trainer:
                       f"{t_disp - t_meta:.2f}s | exec+fetch {t_exec - t_disp:.2f}s", flush=True)
         else:
             step_losses = []
-            for batch in self.train_loader.batches(cfg.batch_size, rng, shuffle=True):
+            for batch in self.train_loader.batches(cfg.batch_size, rng, shuffle=True,
+                                                   rows=self.rows):
                 self.state, metrics = self.train_step(self.state, batch, gen)
                 step_losses.append(metrics["loss"])
             if step_losses:
@@ -193,9 +203,11 @@ class Trainer:
         """Val metrics over the val split, the mean of per-batch means."""
         acc = []
         for batch in self.val_loader.batches(self.cfg.batch_size, rng, shuffle=False,
-                                             drop_remainder=False):
+                                             drop_remainder=False, rows=self.rows):
             m = self.eval_step(self.state, batch)
-            acc.append(torch.stack([m[k].float() for k in VAL_KEYS]))
+            # f32, or a float64 module's float64
+            dt = torch.promote_types(m["loss"].dtype, torch.float32)
+            acc.append(torch.stack([m[k].to(dt) for k in VAL_KEYS]))
         vals = (np.mean(torch.stack(acc).cpu().numpy(), axis=0) if acc
                 else np.zeros(len(VAL_KEYS)))
         return {"val_add": float(vals[0]), "val_add_s": float(vals[1]),

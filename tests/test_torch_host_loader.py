@@ -76,6 +76,34 @@ def test_cache_decoded_and_no_threads(tree):
     b.close()
 
 
+@pytest.mark.parametrize("mode", ["train", "val"])
+def test_batches_rows_are_the_global_rows(tree, mode):
+    """rows=slice(4, 8) (a rank's share of a batch of 8 on a data axis of
+    2) yields rows 4-8 of each unsliced batch bit for bit, the bbox jitter
+    and a padded last batch's `valid` included, and loads 4 samples a
+    batch; rng ends where the unsliced pass leaves it."""
+    train = mode == "train"
+    kw = dict(mode=mode, flavor="rgbd", img_size=S, num_workers=2, compact_arrays=True)
+    full, part = LineMODPoseLoader(tree["data"], **kw), LineMODPoseLoader(tree["data"], **kw)
+    rng_full, rng_part = np.random.default_rng(9), np.random.default_rng(9)
+    want = list(full.batches(8, rng_full, shuffle=train, drop_remainder=train))
+    loads = []
+    load_sample = part.load_sample
+    part.load_sample = lambda idx, rng: loads.append(idx) or load_sample(idx, rng)
+    got = list(part.batches(8, rng_part, shuffle=train, drop_remainder=train,
+                            rows=slice(4, 8)))
+    assert len(got) == len(want) > 0 and len(loads) == 4 * len(want)
+    for a, b in zip(got, want):
+        assert set(a) == set(b)
+        for k in b:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k][4:8]), k
+    if not train:
+        assert not got[-1]["valid"].all()
+    assert rng_part.integers(2**31) == rng_full.integers(2**31)
+    full.close()
+    part.close()
+
+
 @pytest.mark.parametrize("flavor", ["rgb", "rgbd"])
 def test_store_from_loader(tree, flavor):
     tl = LineMODPoseLoader(tree["data"], mode="train", flavor=flavor, img_size=S, num_workers=2)

@@ -26,7 +26,8 @@ WORKFLOW_MODULES = tuple(f"pose6d_tpu_torch.{m}" for m in (
     "cli.setup_data", "cli.prepare_yolo", "cli.train_yolo", "cli.train", "cli.compare",
     "cli.infer", "cli.eval_e2e", "cli.convert_reference_weights", "cli.demo",
     "parallel", "parallel.mesh", "parallel.collectives", "parallel.heads",
-    "cli.compare_visual", "cli.visualize_yolo", "cli.package_weights", "cli.setup_weights"))
+    "cli.compare_visual", "cli.visualize_yolo", "cli.package_weights", "cli.setup_weights",
+    "cli.parity_run", "cli.parity_e2e", "cli.probe_components", "cli.reproduce"))
 
 _PROBE = """
 import importlib, importlib.abc, sys

@@ -5,7 +5,11 @@ resident): a (2, 2) fit writes metrics.csv (rank 0 alone) and checkpoints
 in the one-process layout; its last.pt resumes in a one-process Trainer
 with the same bits as the mesh's gathered state, and a one-process run's
 last.pt resumes on the mesh the same way; the mesh epoch's train loss is
-the one-process epoch's. The CLI runs under torchrun with --mesh 2,1."""
+the one-process epoch's. In the same world, an epoch from the host loaders
+(device_preprocess=False) in float64 on the (2, 2) mesh, whose data axis
+of 2 is (2, 1)'s, ends with the one-process epoch's state and validation
+within 1e-12 per leaf, each rank's loaders decoding only its half of
+each global batch. The CLI runs under torchrun with --mesh 2,1."""
 
 import csv
 import os
@@ -51,13 +55,38 @@ def _one_process(tree, save_dir, fit: bool):
         tr.close()
 
 
+def _one_process_host_epoch(tree, save_dir):
+    """U.host_epoch without a mesh: its loads, and its state and
+    validation in shared memory for the ranks."""
+    from pose6d_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(U.trainer_config(), tree["data"], tree["models"], save_dir, seed=0,
+                 num_workers=0, device_preprocess=False, device="cpu")
+    try:
+        loads, state, val = U.host_epoch(tr)
+    finally:
+        tr.close()
+    share = lambda d: {k: v.share_memory_() for k, v in d.items()}  # noqa: E731
+    return loads, {"state": share(state), "val": share(val)}
+
+
 def test_mesh_fit_and_resume_across_layouts(tree, tmp_path):
     mesh_dir, one_dir = str(tmp_path / "mesh"), str(tmp_path / "one")
     # a one-process run first, for the mesh to resume
     _, _, one_digest = _one_process(tree, one_dir, fit=True)
+    host_loads, host_ref = _one_process_host_epoch(tree, str(tmp_path / "host_one"))
     runs = U.run_world(U.trainer_rank, 4, tmp_path, tree["data"], tree["models"],
-                       [(mesh_dir, (2, 2), False), (one_dir, (2, 2), True)])
-    fit, back = [r[0] for r in runs], [r[1] for r in runs]
+                       [(mesh_dir, (2, 2), False), (one_dir, (2, 2), True),
+                        (str(tmp_path / "host_mesh"), (2, 2), False, host_ref)])
+    fit, back, host = [r[0] for r in runs], [r[1] for r in runs], [r[2] for r in runs]
+    # C6: each rank's loaders decode its half of each global batch, and the
+    # float64 epoch and its validation are the one-process ones
+    assert host_loads["train"] > 0 and host_loads["val"] > 0
+    assert all(r["loads"] == {k: v // 2 for k, v in host_loads.items()} for r in host)
+    errs = host[0]["errs"]
+    assert any(k.startswith("epoch/val") for k in errs) and len(errs) > 300
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-12, (worst, errs[worst])
     assert [r["primary"] for r in fit] == [True, False, False, False]
     assert len({r["digest"] for r in fit}) == 1
     assert sorted(os.listdir(mesh_dir)) == ["best_deploy.pt", "last.pt", "metrics.csv"] or \

@@ -253,21 +253,75 @@ def trainer_rank(rank, data, models, runs):
     each (save_dir, mesh shape, resume_only) of runs in turn: fit(epochs=1),
     or with resume_only try_resume alone. Returns per run {"resumed",
     "start_epoch", "digest" (of the gathered state, the one-process
-    layout), "primary"}."""
+    layout), "primary"}. A run (save_dir, mesh shape, False, reference)
+    is host_epoch's float64 epoch from the host loaders instead, held to
+    `reference` (host_epoch's one-process result, in shared memory):
+    {"loads", and on rank 0 "errs" (leaf_errors)}."""
     from pose6d_tpu_torch.parallel import gather_state, make_mesh
     from pose6d_tpu_torch.train.trainer import Trainer
 
     out = []
-    for save_dir, mesh_shape, resume_only in runs:
+    for save_dir, mesh_shape, resume_only, *ref in runs:
         tr = Trainer(trainer_config(), data, models, save_dir, seed=0, num_workers=0,
-                     mesh=make_mesh(mesh_shape), device_preprocess=True, device="cpu")
+                     mesh=make_mesh(mesh_shape), device_preprocess=not ref, device="cpu")
         try:
+            if ref:
+                loads, state, val = host_epoch(tr)
+                res = {"loads": loads}
+                if rank == 0:
+                    res["errs"] = leaf_errors({**state, **val}, {**ref[0]["state"],
+                                                                 **ref[0]["val"]})
+                out.append(res)
+                continue
             resumed = tr.try_resume() if resume_only else tr.fit(epochs=1) is not None
             out.append({"resumed": resumed, "start_epoch": tr.start_epoch,
                         "primary": tr.primary, "digest": payload_digest(gather_state(tr.state))})
         finally:
             tr.close()
     return out
+
+
+def host_epoch(tr):
+    """The first epoch of Trainer tr (device_preprocess=False) in float64
+    as fit() runs it (train_epoch, then validate, on the seed's generator;
+    no checkpoint is written), each loader counting its load_sample calls
+    (num_workers 0: one thread). Returns (loads {"train", "val"}, the
+    model's state_dict in the one-process layout, the epoch's train loss
+    and validation metrics as 0-d tensors)."""
+    from pose6d_tpu_torch.parallel import gather_params
+
+    tr.state.model.to(torch.float64)
+    loads = {"train": 0, "val": 0}
+    for name in loads:
+        loader = getattr(tr, f"{name}_loader")
+
+        def counted(idx, rng, name=name, load=loader.load_sample):
+            loads[name] += 1
+            return load(idx, rng)
+
+        loader.load_sample = counted
+    rng = np.random.default_rng(tr.seed)
+    metrics = {"train_loss": tr.train_epoch(0, rng)["train_loss"], **tr.validate(rng)}
+    sd = tr.state.model.state_dict()
+    if tr.mesh is not None:
+        sd = gather_params(sd, tr.mesh)
+    return loads, sd, {f"epoch/{k}": torch.tensor(v, dtype=torch.float64)
+                       for k, v in metrics.items()}
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Per leaf, max |got - want| over max(1, max |want|) (float leaves;
+    other leaves 0 where equal, inf where not)."""
+    assert set(got) == set(want), sorted(set(got) ^ set(want))[:6]
+    errs = {}
+    for k, w in want.items():
+        g = got[k]
+        if not w.is_floating_point():
+            errs[k] = 0.0 if torch.equal(g, w) else float("inf")
+            continue
+        assert g.dtype == w.dtype == torch.float64, (k, g.dtype, w.dtype)
+        errs[k] = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+    return errs
 
 
 def pipeline_rank(rank, weights_path, mesh_shape, frames, K, depth, mode):
@@ -459,11 +513,12 @@ def jax_step_rank(rank, variant, state_dict, batch, mesh_shape, seed=0):
 
     from pose6d_tpu_torch.models.posenet import Dropout, PoseNet, PoseNetConfig
     from pose6d_tpu_torch.ops.augment import eval_preprocess
-    from pose6d_tpu_torch.parallel import gather_params, make_mesh, shard_state
+    from pose6d_tpu_torch.parallel import gather_params, make_mesh, shard_batch, shard_state
     from pose6d_tpu_torch.train import loop
 
     mesh = make_mesh(mesh_shape)
     B = len(batch["rgb"])
+    local = shard_batch(batch, mesh)  # the host-path step takes this rank's rows
     cfg = loop.TrainConfig(variant=variant, img_size=S, batch_size=B, grad_clip=1e9)
     out = {}
     with mock.patch.object(loop, "train_augment",
@@ -478,7 +533,7 @@ def jax_step_rank(rank, variant, state_dict, batch, mesh_shape, seed=0):
             state = shard_state(loop.create_train_state(cfg, model=model.to(dtype),
                                                         device="cpu"), mesh)
             with torch.backends.mkldnn.flags(enabled=False):
-                state, metrics = step(state, batch, torch.Generator().manual_seed(seed))
+                state, metrics = step(state, local, torch.Generator().manual_seed(seed))
             grads = gather_params({n: p.grad for n, p in state.model.named_parameters()}, mesh)
             sd = gather_params(state.model.state_dict(), mesh)
             if rank == 0:
