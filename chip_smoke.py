@@ -14,8 +14,9 @@ Phases, each printed on its own line with its seconds:
      HGMMA instructions in each bf16 stage and stem kernel (cuobjdump
      -sass), which must not be 0;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the serving path's shapes (batch 8, and the stem C=3 and layer1 again
-     at the rgb multi-object path's batch 32), in f32 with a tight
+     the serving path's shapes (batch 8, the stem C=3 and layer1 again
+     at the rgb multi-object path's batch 32, and the stems C=3 and C=1 and
+     layer1 at 128 on the rgbd path's crops tiled: phase 16's batch), in f32 with a tight
      tolerance and in bf16 against the f32 plain version with a bf16
      envelope; then its time (CUDA events, median of 20 after warm-up)
      beside the plain version's, one PyTorch library computation of the
@@ -176,13 +177,29 @@ Phases, each printed on its own line with its seconds:
      (rgbd_geometric, wide rotation head, 224, batch 32, the split
      resident): results.json, 2 finite metrics.csv rows, and the gather
      (2 per step) and addmin (1 per val batch) launches counted from 0;
- 16. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add, train, CLI, mesh and learning runs, on the
-     row of the kernel and the batch they ran at (the stem and layer1 at 32
-     in phase 6, at 8 elsewhere; addmin at 8 in phases 9 and 13 and at 32
-     in phases 9, 10, 11, 13, 14 and 15; the gather at 32 in phases 10, 11,
-     13, 14 and 15; stages 3-4 at 8 in phase 13 only); a launch at a batch
-     with no row fails the run. The int8 convolution is
+ 16. trace: the request trace, python -m pose6d_tpu_torch.ops.profile_pipeline,
+     in this process (phase_trace, generator SEED + 19): the JAX
+     benchmark's rows (rgb, rgbd folded with the stem and layer1 kernels,
+     rgbd_geometric folded with the stem and stage 1-4 kernels,
+     rgb_maxobj4 folded, rgbd int8) at batch 8 and rgbd folded at 128,
+     each split into its stages alone, the prefixes of one request and the
+     host's enqueue against the card's time, with a torch.profiler trace of
+     one request; then one eval_e2e batch split into its PNG decodes,
+     ground truth, request and metrics. Checks each run's full prefix equal
+     to __call__ bit for bit, no wait for the card in a request, the
+     fused-kernel launches of one request (TRACE_EXPECT) and the stem and
+     layer1 / stage kernels in the trace's posenet range under their own
+     names (stem_tc_kernel, wgmma_gemm_kernel), every compute share under
+     100 % and every time positive; prints each run's sum of isolated
+     stages, request and overhead;
+ 17. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice, add, train, CLI, mesh, learning and trace runs,
+     on the row of the kernel and the batch they ran at (the stem and
+     layer1 at 32 in phases 6 and 16, at 128 in phase 16, at 8 elsewhere;
+     addmin at 8 in phases 9, 13 and 16 and at 32 in phases 9, 10, 11, 13,
+     14 and 15; the gather at 32 in phases 10, 11, 13, 14 and 15; stages
+     3-4 at 8 in phases 13 and 16); a launch at a batch with no row fails
+     the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
 
@@ -238,6 +255,9 @@ CROP_WINDOW = 320      # the windowed crop's side in the letterbox phase's check
 DECODE_BOX_ATOL = 1e-4  # px, decode on the card vs on the CPU (the DFL softmax's exp)
 INT8_FEAT_REL_L2 = 1e-3  # int8 tower features, card vs CPU copies (exact int32 products)
 INT8_MIN_COS = 0.9     # int8 vs bf16 towers and detector maps: catches scale or sign faults
+TRACE_BIG_BATCH = 128  # the request trace's rgbd folded batch (the JAX benchmark's)
+TRACE_WINDOW = 6       # phase 16: launches in a timed window
+TRACE_REPS = 2         # phase 16: single launches per host and card reading
 
 
 class CheckFailed(RuntimeError):
@@ -655,7 +675,9 @@ def phase_kernels(pipe, geo_pipe, multi_pipe, tower_inputs, multi_inputs, store,
     timed beside the plain version, a library computation and its bound:
     the stem (C=3, C=1) and layer1 on the rgbd path's towers at batch 8,
     the stages on rgbd_geometric's, the stem C=3 and layer1 again on the
-    rgb multi-object path's tower at its batch (8 frames x 4 objects)."""
+    rgb multi-object path's tower at its batch (8 frames x 4 objects), and
+    the stems and layer1 of the rgbd path at TRACE_BIG_BATCH (its crops
+    tiled), the batch phase 16 serves rgbd at."""
     from pose6d_tpu_torch.ops.quant import fold_bn_resnet
 
     rows = []
@@ -671,6 +693,15 @@ def phase_kernels(pipe, geo_pipe, multi_pipe, tower_inputs, multi_inputs, store,
     x = multi_inputs["rgb"].contiguous()
     row, out = stem_row(tree, x, "fused_stem_c3")
     rows += [row, layer1_row(tree, out, "fused_layer1")]
+    # the request trace's rgbd batch (phase 16): the rgbd towers' crops tiled
+    reps = TRACE_BIG_BATCH // BATCH
+    for C, name in ((3, "rgb_backbone"), (1, "depth_backbone")):
+        tree = fold_bn_resnet(getattr(pipe.posenet, name))
+        x = (tower_inputs["rgb"] if C == 3 else tower_inputs["depth"]).repeat(reps, 1, 1, 1)
+        row, out = stem_row(tree, x.contiguous(), f"fused_stem_c{C}")
+        rows.append(row)
+        if C == 3:
+            rows.append(layer1_row(tree, out, "fused_layer1"))
 
     # addmin on centred model points under two seeded poses per sample, at
     # the serving add's batch and the train eval step's
@@ -1191,94 +1222,14 @@ METRICS_HEADER = ["epoch", "train_loss", "val_add", "val_add_s", "val_acc", "val
                   "lr", "steps_per_sec", "imgs_per_sec"]  # the JAX Trainer's metrics.csv
 
 
-def seeded_frame(rng, bbox, z_mm: float, color):
-    """A smooth seeded RGB frame (32 px blocks plus a gradient) with the
-    object's box filled in its colour, and uint16 depth in mm inside the
-    box (a plane around z_mm), 0 outside."""
-    coarse = rng.integers(30, 200, (FRAME_H // 32 + 1, FRAME_W // 32 + 1, 3))
-    img = np.repeat(np.repeat(coarse, 32, 0), 32, 1)[:FRAME_H, :FRAME_W]
-    img = img + (np.arange(FRAME_W)[None, :, None] // 40)
-    x, y, w, h = bbox
-    img[y:y + h, x:x + w] = np.asarray(color) + rng.integers(0, 24, (h, w, 3))
-    depth = np.zeros((FRAME_H, FRAME_W), np.uint16)
-    tilt = rng.uniform(-0.3, 0.3, 2)
-    yy, xx = np.mgrid[0:h, 0:w]
-    depth[y:y + h, x:x + w] = (z_mm + tilt[0] * (xx - w / 2) + tilt[1] * (yy - h / 2)).astype(np.uint16)
-    return np.clip(img, 0, 255).astype(np.uint8), depth
-
-
 def write_linemod_tree(root: str, rng, objects: dict = DISK_OBJECTS, frames: int = DISK_FRAMES,
                        depth: bool = True) -> dict:
-    """A seeded LineMOD tree under root, written without cv2 or yaml:
-    data/<NN>/rgb/NNNN.png and, with depth, data/<NN>/depth/NNNN.png
-    (`frames` 640x480 frames in each folder of `objects`, encode_png),
-    gt.yml and info.yml in LineMOD's flow-list form, and models/obj_NN.ply
-    (ASCII, the object's vertex count in its cube) with models_info.yml.
-    The draws are the same with or without depth. Every PNG written is read
-    back by data/png.py and must equal its array bit for bit; returns the
-    decode times (ms per frame)."""
-    from concurrent.futures import ThreadPoolExecutor
+    """data/seeded_tree.write_linemod_tree at 640x480: a seeded LineMOD tree
+    written without cv2 or yaml, every PNG decoded back bit-equal; returns
+    the decode times (ms per frame)."""
+    from pose6d_tpu_torch.data.seeded_tree import write_linemod_tree as write
 
-    from pose6d_tpu_torch.data.png import encode_png, read_png
-
-    data, models = os.path.join(root, "data"), os.path.join(root, "models")
-    os.makedirs(models, exist_ok=True)
-    info_lines, written = [], []
-    for obj, (half, n_pts) in objects.items():
-        pts = rng.uniform(-half, half, (n_pts, 3))
-        with open(os.path.join(models, f"obj_{obj:02d}.ply"), "w") as f:
-            f.write(f"ply\nformat ascii 1.0\nelement vertex {len(pts)}\nproperty float x\n"
-                    f"property float y\nproperty float z\nend_header\n")
-            f.writelines(f"{a:.6f} {b:.6f} {c:.6f}\n" for a, b, c in pts)
-        info_lines.append(f"{obj}: {{diameter: {2 * half * np.sqrt(3):.6f}, "
-                          f"min_x: {-half}, size_x: {2 * half}}}\n")
-        base = os.path.join(data, f"{obj:02d}")
-        for sub in ("rgb", "depth") if depth else ("rgb",):
-            os.makedirs(os.path.join(base, sub), exist_ok=True)
-        color = rng.integers(60, 230, 3)
-        gt, info = [], []
-        for frame in range(frames):
-            wh = rng.integers(60, 200, 2)
-            xy = (rng.uniform(0, 1, 2) * (np.array([FRAME_W, FRAME_H]) - wh)).astype(int)
-            bbox = [int(xy[0]), int(xy[1]), int(wh[0]), int(wh[1])]
-            q = rng.normal(size=4)
-            x, y, z, w = q / np.linalg.norm(q)
-            rot = [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
-                   2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
-                   2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]
-            t = [rng.uniform(-100, 100), rng.uniform(-100, 100), rng.uniform(600, 1000)]
-            rgb, depth_mm = seeded_frame(rng, bbox, t[2], color)
-            name = f"{frame:04d}.png"
-            written.append((os.path.join(base, "rgb", name), rgb))
-            if depth:
-                written.append((os.path.join(base, "depth", name), depth_mm))
-            gt.append(f"{frame}:\n- cam_R_m2c: {[float(v) for v in rot]}\n"
-                      f"  cam_t_m2c: {[float(v) for v in t]}\n  obj_bb: {bbox}\n"
-                      f"  obj_id: {obj}\n")
-            info.append(f"{frame}:\n  cam_K: {[float(v) for v in LINEMOD_K.ravel()]}\n"
-                        f"  depth_scale: 1.0\n")
-        with open(os.path.join(base, "gt.yml"), "w") as f:
-            f.writelines(gt)
-        with open(os.path.join(base, "info.yml"), "w") as f:
-            f.writelines(info)
-    with open(os.path.join(models, "models_info.yml"), "w") as f:
-        f.writelines(info_lines)
-
-    def write(item):
-        with open(item[0], "wb") as f:
-            f.write(encode_png(item[1]))
-
-    with ThreadPoolExecutor(8) as pool:
-        list(pool.map(write, written))
-    times = {"rgb": [], "depth": []}
-    for path, arr in written:
-        t0 = time.perf_counter()
-        got = read_png(path)
-        times["rgb" if arr.ndim == 3 else "depth"].append((time.perf_counter() - t0) * 1e3)
-        check(got.dtype == arr.dtype and np.array_equal(got, arr),
-              f"{path} does not decode to the array written")
-    return {"data": data, "models": models, "frames": len(times["rgb"]),
-            "decode_ms": {k: statistics.median(v) for k, v in times.items() if v}}
+    return write(root, rng, objects, frames, depth, (FRAME_H, FRAME_W))
 
 
 class EpochProbe:
@@ -2823,6 +2774,94 @@ def phase_learning(smi: str, device: str = "cuda"):
     return {(k, 32): v for k, v in counts.items()}, {"runs": runs, "parity_s": secs}
 
 
+# phase 16: per row, the fused-kernel wrappers one request launches, and the
+# csrc kernels its posenet range must show in the trace
+TRACE_EXPECT = {
+    "rgb": ({}, ()),
+    "rgbd_folded": ({"fused_stem_c3": 1, "fused_stem_c1": 1, "fused_layer1": 2},
+                    ("stem_tc_kernel", "wgmma_gemm_kernel")),
+    "rgbd_geometric_folded": ({"fused_stem_c3": 1,
+                               **{f"fused_stage_s{k}": 1 for k in (1, 2, 3, 4)}},
+                              ("stem_tc_kernel", "wgmma_gemm_kernel")),
+    "rgb_maxobj4": ({"fused_stem_c3": 1, "fused_layer1": 1},
+                    ("stem_tc_kernel", "wgmma_gemm_kernel")),
+    "rgbd_int8": ({}, ()),
+}
+
+
+def phase_trace(smi: str):
+    """The request trace (ops/profile_pipeline.py) in this process: every
+    row at BATCH and rgbd folded at TRACE_BIG_BATCH (windows of
+    TRACE_WINDOW, readings of TRACE_REPS, generator SEED + 19), then the
+    eval_e2e batch. Checks each run's full prefix equal to __call__ bit for
+    bit on the card, its request free of waits for the card, the fused
+    kernels it launches (TRACE_EXPECT) and the stem and layer1 / stage
+    kernels in its trace's posenet range under their own names, every
+    compute share under 100 % and every time positive; prints each run's
+    sum of isolated stages, request and overhead. Writes the JSON lines to
+    _build/profile_pipeline.jsonl and the traces to _build/trace/. Returns
+    (launches by (kernel, batch), the lines, the eval batch's split)."""
+    import argparse
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    build_dir = os.path.dirname(_build.LIB_PATH)
+    args = argparse.Namespace(device="cuda", frame_hw=[FRAME_H, FRAME_W], img_size=224,
+                              det_size=640, window=TRACE_WINDOW, reps=TRACE_REPS,
+                              trace_dir=os.path.join(build_dir, "trace"))
+    rng = np.random.default_rng(SEED + 19)
+    counts, lines = collections.Counter(), []
+    runs = pp.parse_runs(pp.DEFAULT_RUNS)
+    check(sorted({row for row, _ in runs}) == sorted(TRACE_EXPECT)
+          and (("rgbd_folded", TRACE_BIG_BATCH) in runs), f"the tool's runs {runs}")
+    for row, batch in runs:
+        t0 = time.perf_counter()
+        _build.launch_counts.clear()
+        line = pp.profile_run(row, batch, args, rng)
+        counts.update({(k, line["pose_batch"]): v for k, v in _build.launch_counts.items()})
+        what = f"{line['name']}@{batch}"
+        check(line["full_prefix_equals_call"] and line["sync_free"],
+              f"{what}: the full prefix differs from __call__, or a stage waits for the card")
+        wrappers, kernels = TRACE_EXPECT[row]
+        check(line["kernel_launches"] == wrappers,
+              f"{what}: one request launched {line['kernel_launches']}, expected {wrappers}")
+        seen = line["hand_kernels"].get("posenet", {})
+        check(set(seen) == set(kernels) and not set(line["hand_kernels"]) - {"posenet"},
+              f"{what}: the trace shows the hand-written kernels {line['hand_kernels']}, "
+              f"expected {kernels} in posenet")
+        readings = [*line["stages"].values(), line["request"], *line["prefixes"]]
+        check(all(r[k] > 0 for r in readings for k in ("ms", "host_enqueue_ms", "card_ms")),
+              f"{what}: a stage time is not positive")
+        shares = [r["peak_share"] for r in (*line["stages"].values(), line["request"])]
+        check(all(0.0 <= x < 1.0 for x in shares), f"{what}: a compute share {shares}")
+        req = line["request"]
+        log(f"  {what}: sum of isolated stages {line['sum_isolated_ms']:.3f} ms, request "
+            f"{req['ms']:.3f} ms, overhead {line['overhead_ms']:.3f} ms; on the card's time "
+            f"{line['sum_isolated_card_ms']:.3f} / {req['card_ms']:.3f} / "
+            f"{line['card_overhead_ms']:.3f} ms; host enqueue {req['host_enqueue_ms']:.3f} ms, "
+            f"idle {req['idle_share']:.3f}; stages (ms / card ms) "
+            + ", ".join(f"{k} {v['ms']:.3f} / {v['card_ms']:.3f}"
+                        for k, v in line["stages"].items())
+            + f"; on {smi} ({time.perf_counter() - t0:.1f}s)")
+        lines.append(line)
+    t0 = time.perf_counter()
+    _build.launch_counts.clear()
+    ev = pp.eval_batch(args, rng)
+    counts.update({(k, ev["frames"]): v for k, v in _build.launch_counts.items()})
+    check(ev["addmin_launches"] > 0 and all(ev[k] > 0 for k in (
+        "decode_ms", "ground_truth_ms", "request_ms", "request_card_ms", "metrics_ms")),
+          f"the eval_e2e batch's split {ev}")
+    log(f"  eval_e2e batch of {ev['frames']}: decode {ev['decode_ms']:.3f} ms, ground truth "
+        f"{ev['ground_truth_ms']:.3f}, request {ev['request_ms']:.3f} (enqueue "
+        f"{ev['request_enqueue_ms']:.3f}, card {ev['request_card_ms']:.3f}), metrics "
+        f"{ev['metrics_ms']:.3f}, total {ev['total_ms']:.3f} ms on {smi} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    with open(os.path.join(build_dir, "profile_pipeline.jsonl"), "w") as f:
+        f.writelines(json.dumps(x) + "\n" for x in (*lines, {"eval_batch": ev}))
+    return counts, lines, ev
+
+
 def setup(rng, rng_new, device):
     """Seeded full-width weights; per path (rgbd with the stem and layer1
     kernels, rgbd_geometric with the stem and stage 1-2 kernels, rgb with
@@ -3069,13 +3108,25 @@ def main() -> int:
         + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(learn_counts.items()))
         + f" ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    trace_counts, trace, ev = phase_trace(smi)
+    for (k, batch), v in sorted(trace_counts.items()):
+        count({k: v}, batch)
+    log(f"[phase 16 trace] ops/profile_pipeline.py on every row at {BATCH} and rgbd folded at "
+        f"{TRACE_BIG_BATCH} on {smi}: full prefix == __call__, no wait for the card, the "
+        f"kernels in the trace; request ms " + ", ".join(
+            f"{x['name']}@{x['batch']} {x['request']['ms']:.3f}" for x in trace)
+        + f"; eval_e2e batch {ev['total_ms']:.1f} ms; launches "
+        + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(trace_counts.items()))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
     # the b32 addmin row: phase 3's inputs and the eval step's
     r = by_id[("pairwise_min_dist", 32)]
     r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 16 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 17 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())

@@ -8,23 +8,25 @@
 #   3. parity_e2e --variants rgbd_geometric rgbd_geometric_widehead (YOLOv8n
 #      5 epochs at 640, then eval_e2e on the test split);
 #   4. probe_components on both runs;
-#   5. the reference head again at seeds 1 and 2 (the init, the shuffle and
-#      the random draws; parity_run's --seed) on stage 1's seed-0 fixture,
-#      each in WORKDIR/seed<N> with the fixture linked in.
+#   5. the reference head again at SEEDS (default 1 and 2: the init, the
+#      shuffle and the random draws; parity_run's --seed) on stage 1's
+#      seed-0 fixture, each in WORKDIR/seed<N> with the fixture linked in.
 #
 # Usage, from the repository root:
-#   bash parity_torch/run_evidence.sh [WORKDIR] [OUT] [STAGES]
+#   bash parity_torch/run_evidence.sh [WORKDIR] [OUT] [STAGES] [SEEDS]
 # WORKDIR (default /tmp/pose6d_torch_parity) holds the fixture and the
 # weights; OUT (default parity_torch/card) receives the small files after
 # each stage: results.json, each run's metrics.csv, e2e_results.json,
 # probe_results.json, the tables and the logs, with the card's name and
 # power limit. STAGES (default "1 2 3 4 5") picks stages; stage 5 needs
-# stage 1's fixture. A stage that fails does not stop the later ones; the
-# script exits with the last failure's code.
+# stage 1's fixture; SEEDS (default "1 2") are stage 5's. A stage that
+# fails does not stop the later ones; the script exits with the last
+# failure's code.
 set -euo pipefail
 WD=${1:-/tmp/pose6d_torch_parity}
 OUT=${2:-parity_torch/card}
 STAGES=${3:-1 2 3 4 5}
+SEEDS=${4:-1 2}
 mkdir -p "$WD" "$OUT/logs"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/device.txt"
 python -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)' \
@@ -72,7 +74,7 @@ for s in $STAGES; do
          --variants rgbd_geometric rgbd_geometric_widehead || failed=$? ;;
     4) run probe $M.probe_components --workdir "$WD" \
          --variants rgbd_geometric rgbd_geometric_widehead || failed=$? ;;
-    5) for seed in 1 2; do
+    5) for seed in $SEEDS; do
          SUB=seed$seed
          mkdir -p "$WD/$SUB"
          ln -sfn "$WD/synth" "$WD/$SUB/synth"

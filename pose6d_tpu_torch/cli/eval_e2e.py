@@ -42,6 +42,33 @@ def _load_frames(paths, need_depth):
     return np.stack(frames), np.stack(depths)
 
 
+def _gt_arrays(chunk):
+    """A batch of samples' ground truth: quaternions (_gt_quat), translations
+    in metres, object ids, and the intrinsics [B, 3, 3]."""
+    gt_q = np.asarray([_gt_quat(s.rot_mat) for s in chunk], np.float32)
+    gt_t = np.asarray([s.trans_mm / 1000.0 for s in chunk], np.float32)
+    gt_ids = np.asarray([s.obj_id for s in chunk], np.int64)
+    K = np.stack([s.cam_K for s in chunk]).astype(np.float32)
+    return gt_q, gt_t, gt_ids, K
+
+
+def _score_batch(out, evaluator, gt_q, gt_t, gt_ids, cls_to_objid, tot) -> None:
+    """Add a batch's detections, class matches and ADD metrics (the
+    undetected frames masked) to the running totals `tot`; reads the
+    request's outputs back from the card."""
+    det_valid = out["det_valid"].cpu().numpy()
+    pred_obj = np.asarray([cls_to_objid.get(int(c), -1) for c in out["class_id"].cpu()])
+    tot["detected"] += int(det_valid.sum())
+    tot["cls_correct"] += int(((pred_obj == gt_ids) & det_valid).sum())
+    tot["n"] += len(gt_ids)
+    m = evaluator.eval_metrics(out["rotation"], out["translation"], gt_q, gt_t,
+                               np.where(det_valid, gt_ids, -1))
+    tot["add"] += m["add_mean"]
+    tot["add_s"] += m["add_s_mean"]
+    tot["acc"] += m["add_01d_acc"]
+    tot["n_batches"] += 1
+
+
 def _eval_multi(args, frames_idx, pipe, evaluator, cls_to_objid):
     """Multi-object frames (--max-objects > 1): each ground-truth object
     claims the best-scoring unused detection of its class (detections come
@@ -224,25 +251,11 @@ def main(argv=None):
     for start in range(0, len(samples), B):
         chunk = samples[start:start + B]
         frames, depths = _load_frames([(s.img_path, s.depth_path) for s in chunk], need_depth)
-        gt_q = np.asarray([_gt_quat(s.rot_mat) for s in chunk], np.float32)
-        gt_t = np.asarray([s.trans_mm / 1000.0 for s in chunk], np.float32)
-        gt_ids = np.asarray([s.obj_id for s in chunk], np.int64)
-        K = np.stack([s.cam_K for s in chunk]).astype(np.float32)
+        gt_q, gt_t, gt_ids, K = _gt_arrays(chunk)
         if not calibrated:  # the first batch is the int8 calibration set
             pipe.quantize_backbones(frames, K, depths, include_detector=True)
             calibrated = True
-        out = pipe(frames, K, depths)
-        det_valid = out["det_valid"].cpu().numpy()
-        pred_obj = np.asarray([cls_to_objid.get(int(c), -1) for c in out["class_id"].cpu()])
-        tot["detected"] += int(det_valid.sum())
-        tot["cls_correct"] += int(((pred_obj == gt_ids) & det_valid).sum())
-        tot["n"] += len(chunk)
-        m = evaluator.eval_metrics(out["rotation"], out["translation"], gt_q, gt_t,
-                                   np.where(det_valid, gt_ids, -1))
-        tot["add"] += m["add_mean"]
-        tot["add_s"] += m["add_s_mean"]
-        tot["acc"] += m["add_01d_acc"]
-        tot["n_batches"] += 1
+        _score_batch(pipe(frames, K, depths), evaluator, gt_q, gt_t, gt_ids, cls_to_objid, tot)
     secs = time.perf_counter() - t0
 
     nb = max(tot["n_batches"], 1)

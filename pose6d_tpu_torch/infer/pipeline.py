@@ -263,26 +263,63 @@ class PosePipeline:
                                conf_thresh=cfg.conf_thresh,
                                fixpoint_iters=cfg.nms_fixpoint_iters)
 
+    def _detector(self, canvas: torch.Tensor, yolo_int8=None):
+        """The detector's raw maps on its canvas: the float detector in its
+        dtype, or the int8 one given."""
+        return (self.yolo(canvas.to(self.yolo_cfg.dtype)) if yolo_int8 is None
+                else yolo_int8(canvas))
+
+    @staticmethod
+    def _frame_boxes(boxes: torch.Tensor, scale, pad_l, pad_t) -> torch.Tensor:
+        """Canvas xyxy boxes [B, D, 4] -> xywh in the original frame."""
+        x1 = (boxes[..., 0] - pad_l) / scale
+        y1 = (boxes[..., 1] - pad_t) / scale
+        x2 = (boxes[..., 2] - pad_l) / scale
+        y2 = (boxes[..., 3] - pad_t) / scale
+        return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)
+
     def _detect_best(self, frames_norm: torch.Tensor, yolo_int8=None):
         """YOLO (the float detector, or the int8 one given) -> decode ->
         every detection mapped back to the original frame, score-ordered,
         as xywh [B, D, 4], plus the decode dict."""
         canvas, scale, pad_l, pad_t, det_hw = self._letterbox(frames_norm)
-        outputs = (self.yolo(canvas.to(self.yolo_cfg.dtype)) if yolo_int8 is None
-                   else yolo_int8(canvas))
-        dets = self._decode(outputs, det_hw)
-        b = dets["boxes"]  # [B, D, 4] xyxy in the canvas
-        x1 = (b[..., 0] - pad_l) / scale
-        y1 = (b[..., 1] - pad_t) / scale
-        x2 = (b[..., 2] - pad_l) / scale
-        y2 = (b[..., 3] - pad_t) / scale
-        return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1), dets
+        dets = self._decode(self._detector(canvas, yolo_int8), det_hw)
+        return self._frame_boxes(dets["boxes"], scale, pad_l, pad_t), dets
 
     def _per_object(self, t: torch.Tensor) -> torch.Tensor:
         """A per-frame tensor [B, ...] repeated for each of the M objects:
         [B*M, ...], frame-major."""
         M = self.cfg.max_objects
         return t.repeat_interleave(M, dim=0) if M > 1 else t
+
+    def _to_compute(self, frames: torch.Tensor) -> torch.Tensor:
+        """uint8 frames -> compute_dtype / 255."""
+        return frames.to(self.cfg.compute_dtype) / 255.0
+
+    def _pose_boxes(self, all_bbox: torch.Tensor):
+        """The top-M boxes of each frame, [B*M, 4] frame-major, and their
+        square crop parameters (cx1, cy1, csize) at 1.2x each box."""
+        B, M = all_bbox.shape[0], self.cfg.max_objects
+        bbox = all_bbox[:, :M].reshape(B * M, 4)
+        return bbox, crop_params_from_bbox(bbox)
+
+    def _crop(self, src: torch.Tensor, params, dtype) -> torch.Tensor:
+        """[B, H, W, C] -> the [B*M, S, S, C] crops of params (cx1, cy1,
+        csize, each [B*M]) in dtype: each of the M crops of a frame reads
+        the same source frame, from the whole frame or its crop_window."""
+        cfg = self.cfg
+        S, M, B = cfg.img_size, cfg.max_objects, src.shape[0]
+        src = src.to(dtype)
+        params = [p.reshape(B, M) for p in params]
+        windowed = cfg.crop_window is not None and cfg.crop_window < min(src.shape[1],
+                                                                         src.shape[2])
+        outs = []
+        for m in range(M):
+            xs, ys, ss = (p[:, m] for p in params)
+            outs.append(crop_resize_matmul_windowed(src, xs, ys, ss, S, cfg.crop_window,
+                                                    compute_dtype=dtype) if windowed
+                        else crop_resize_matmul(src, xs, ys, ss, S, compute_dtype=dtype))
+        return torch.stack(outs, 1).reshape(B * M, S, S, src.shape[-1])
 
     def crop_stage(self, frames: torch.Tensor, camera_K: torch.Tensor,
                    depth_raw_full: torch.Tensor | None = None) -> dict:
@@ -293,36 +330,31 @@ class PosePipeline:
         "camera_matrix" as the variant takes them), "bbox_xywh" [B*M, 4],
         "center" (the box centre in the frame), "dets" (the decode dict,
         [B, D, ...])}."""
-        cfg = self.cfg
-        S, M, cd = cfg.img_size, cfg.max_objects, cfg.compute_dtype
-        B = frames.shape[0]
-        frames_norm = frames.to(cd) / 255.0
+        cd = self.cfg.compute_dtype
+        frames_norm = self._to_compute(frames)
         all_bbox, dets = self._detect_best(frames_norm, self._yolo_int8)
-        bbox = all_bbox[:, :M].reshape(B * M, 4)
+        bbox, params = self._pose_boxes(all_bbox)
+        rgb = eval_preprocess(self._crop(frames_norm, params, cd)).to(cd)
+        inputs, center = self._pose_inputs(rgb, bbox, params, camera_K, depth_raw_full)
+        return {"inputs": inputs, "bbox_xywh": bbox, "center": center, "dets": dets}
+
+    def _pose_inputs(self, rgb: torch.Tensor, bbox: torch.Tensor, params,
+                     camera_K: torch.Tensor, depth_raw_full: torch.Tensor | None):
+        """The PoseNet keyword arguments of the variant over the [B*M] pose
+        batch, from its normalized crops `rgb`, boxes and crop parameters
+        (_pose_boxes), and the box centres in the frame: (inputs, center).
+        The depth variants crop the depth map here."""
+        cfg = self.cfg
+        S, cd = cfg.img_size, cfg.compute_dtype
+        cx1, cy1, csize = params
         K = self._per_object(camera_K)
-        cx1, cy1, csize = crop_params_from_bbox(bbox)
-
-        def crop_one(src, xs, ys, ss, dtype):
-            if cfg.crop_window is not None and cfg.crop_window < min(src.shape[1], src.shape[2]):
-                return crop_resize_matmul_windowed(src, xs, ys, ss, S, cfg.crop_window,
-                                                   compute_dtype=dtype)
-            return crop_resize_matmul(src, xs, ys, ss, S, compute_dtype=dtype)
-
-        def crop(src, dtype):
-            # each of the M crops of a frame reads the same source frame
-            src = src.to(dtype)
-            params = [p.reshape(B, M) for p in (cx1, cy1, csize)]
-            outs = [crop_one(src, *(p[:, m] for p in params), dtype) for m in range(M)]
-            return torch.stack(outs, 1).reshape(B * M, S, S, src.shape[-1])
-
-        crops = eval_preprocess(crop(frames_norm, cd)).to(cd)
         center = torch.stack([bbox[:, 0] + bbox[:, 2] / 2.0, bbox[:, 1] + bbox[:, 3] / 2.0], -1)
-        inputs = {"rgb": crops}
+        inputs = {"rgb": rgb}
         if cfg.variant == "rgb_geometric":
             inputs.update(bbox_center=center, camera_matrix=K)
         elif cfg.variant == "rgbd":
-            depth_crop = crop(depth_raw_full[..., None],
-                              cd if cfg.depth_crop_bf16 else torch.float32)[..., 0]
+            depth_crop = self._crop(depth_raw_full[..., None], params,
+                                    cd if cfg.depth_crop_bf16 else torch.float32)[..., 0]
             inputs["depth"] = normalize_depth(depth_crop)[..., None].to(cd)
         elif cfg.variant == "rgbd_geometric":
             # crop-frame bookkeeping; the device crop never materializes
@@ -332,27 +364,40 @@ class PosePipeline:
             center_crop = torch.stack([((center[:, 0] - cx1) * scale).clamp(0, S - 1),
                                        ((center[:, 1] - cy1) * scale).clamp(0, S - 1)], -1)
             inputs.update(
-                depth_raw=crop(depth_raw_full[..., None], torch.float32)[..., 0],
+                depth_raw=self._crop(depth_raw_full[..., None], params, torch.float32)[..., 0],
                 bbox_center=center_crop,
                 camera_matrix=adjust_intrinsics_for_crop(K, cx1, cy1, zeros, zeros, scale))
-        return {"inputs": inputs, "bbox_xywh": bbox, "center": center, "dets": dets}
+        return inputs, center
+
+    def pose_forward(self, inputs: dict):
+        """The pose net over crop_stage's inputs: the serving towers (folded
+        or int8) when the pipeline has them, else the float module.
+        Returns (rotation, translation)."""
+        cfg = self.cfg
+        if self._folded or self._quantized:
+            return serving_forward(self.posenet, self.pose_cfg, **inputs,
+                                   compute_dtype=cfg.compute_dtype, folded=self._folded,
+                                   quantized=self._quantized)
+        return self.posenet(**inputs)
 
     def _run(self, frames, camera_K, depth_raw_full) -> dict:
-        cfg = self.cfg
-        B, M = frames.shape[0], cfg.max_objects
         st = self.crop_stage(frames, camera_K, depth_raw_full)
-        if self._folded or self._quantized:
-            rot, trans = serving_forward(self.posenet, self.pose_cfg, **st["inputs"],
-                                         compute_dtype=cfg.compute_dtype, folded=self._folded,
-                                         quantized=self._quantized)
-        else:
-            rot, trans = self.posenet(**st["inputs"])
+        rot, trans = self.pose_forward(st["inputs"])
+        return self._outputs(rot, trans, st, camera_K)
+
+    def _outputs(self, rot, trans, st: dict, camera_K: torch.Tensor) -> dict:
+        """The request's outputs from the pose net's (rot, trans) and
+        crop_stage's dict: with geometric_correction (rgb, rgbd) X/Y
+        re-derived from the predicted Z, the box centre and the original
+        intrinsics; [B, M, ...] when max_objects > 1."""
+        cfg = self.cfg
+        dets = st["dets"]
+        B, M = dets["boxes"].shape[0], cfg.max_objects
         trans = trans.float()
         if cfg.geometric_correction and cfg.variant in ("rgb", "rgbd"):
             # deployment-time X/Y re-derivation from the predicted Z, the box
             # centre and the original intrinsics
             trans = pinhole_xy_from_z(trans[:, 2], st["center"], self._per_object(camera_K))
-        dets = st["dets"]
 
         def shape_out(x):
             return x.reshape(B, M, *x.shape[1:]) if M > 1 else x

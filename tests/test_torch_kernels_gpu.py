@@ -91,12 +91,13 @@ def test_stem_kernel(cuda, C, dtype):
     _check(got, want, dtype)
 
 
-@pytest.mark.parametrize("batch", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 32, 128])
 @pytest.mark.parametrize("C", [3, 1])
 def test_stem_tensor_core_kernel(cuda, C, batch):
     """The bf16 stem (csrc/stem_tc.cu) at the serving batch and around it,
-    every tile of every image against the f32 plain version; two launches on
-    the same input are equal bit for bit."""
+    and at 128 (the request trace's rgbd batch), every tile of every image
+    against the f32 plain version; two launches on the same input are
+    equal bit for bit."""
     w = _to(fb.pack_stem_weights(_folded({"conv1": (7, C, 64)}, seed=batch), torch.bfloat16),
             cuda)
     x = torch.randn(batch, 224, 224, C, generator=torch.Generator().manual_seed(10 + batch))
@@ -134,12 +135,13 @@ def _stage_weights(stage, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 32, 128])
 @pytest.mark.parametrize("stage", [1, 2, 3, 4])
 def test_stage_kernel(cuda, stage, batch, dtype):
     """Every stage, including M = B*ho*wo not a multiple of the 64- or
     128-row tile (stage 2 at B=1: 784 rows; stage 4: 49 rows per image;
-    batch 3), and the batches whose plans split K (stage_plan)."""
+    batch 3), the batches whose plans split K (stage_plan), and 128 (the
+    request trace's rgbd batch)."""
     _, _, _, cin, _, _, h, w = fb.STAGE_CFGS[stage]
     wts = _stage_weights(stage, dtype)
     x = torch.randn(batch, h, w, cin, generator=torch.Generator().manual_seed(stage)).to(dtype)

@@ -2,7 +2,8 @@
 torchvision, ultralytics, cv2, PyYAML, PIL or the JAX package: every
 submodule imports in a fresh interpreter in which those names are blocked
 (the card's machine has none of them installed), the detector-training
-modules, the converters, the generator, utils and every CLI among them;
+modules, the converters, the generator, utils, every CLI and the request
+trace among them;
 the LineMOD loader, the parser, the detector trainer and the synthetic
 generator's CLI also run there."""
 
@@ -27,7 +28,8 @@ WORKFLOW_MODULES = tuple(f"pose6d_tpu_torch.{m}" for m in (
     "cli.infer", "cli.eval_e2e", "cli.convert_reference_weights", "cli.demo",
     "parallel", "parallel.mesh", "parallel.collectives", "parallel.heads",
     "cli.compare_visual", "cli.visualize_yolo", "cli.package_weights", "cli.setup_weights",
-    "cli.parity_run", "cli.parity_e2e", "cli.probe_components", "cli.reproduce"))
+    "cli.parity_run", "cli.parity_e2e", "cli.probe_components", "cli.reproduce",
+    "ops.profile_pipeline", "data.seeded_tree"))
 
 _PROBE = """
 import importlib, importlib.abc, sys

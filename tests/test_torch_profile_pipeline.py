@@ -1,0 +1,173 @@
+"""The request trace (pose6d_tpu_torch/ops/profile_pipeline.py) on the CPU
+at a small size: 160x120 frames (letterboxed onto a 160 canvas), YOLOv8n,
+PoseNet at img 64 (the folded rows then fold without the kernels, which
+need 224), batch 2, --device cpu, one run of the tool for rgb, rgbd and
+rgbd_geometric with a trace and the eval_e2e batch. Each row prints its
+JSON line with the fields the module docstring states, its full prefix
+(request_steps, the pipeline's own methods) equals PosePipeline.__call__
+bit for bit, and its stage FLOPs are the port's own counts; the counts of
+a ResNet50 tower at 224 (C=3 and C=1) and of YOLOv8n at 640x480 are held
+within FLOP_RTOL of XLA's cost analysis of the JAX modules, lowered on the
+CPU and never run (XLA counts the convolutions' multiply-adds x 2 without
+the padded taps, and the elementwise ops besides: the two counts differ by
+a few per cent, not by a factor). Without --device cpu, on a machine with
+no card, the tool exits 2."""
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from torch_port_utils import few_torch_threads  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROWS = ("rgb", "rgbd_folded", "rgbd_geometric_folded")
+BATCH = 2
+ARGS = ["--device", "cpu", "--frame-hw", "120", "160", "--img-size", "64", "--det-size", "160",
+        "--window", "1", "--reps", "1"]
+FLOP_RTOL = 0.05
+STAGE_KEYS = {"ms", "host_enqueue_ms", "card_ms", "idle_share", "gflop_per_frame", "peak_share"}
+LINE_KEYS = {"row", "name", "batch", "pose_batch", "device", "clock", "tf32", "frame_hw",
+             "img_size", "ring", "window", "stages", "sum_isolated_ms", "prefixes", "request",
+             "overhead_ms", "sum_isolated_card_ms", "card_overhead_ms",
+             "full_prefix_equals_call", "sync_free", "kernel_launches", "top_ops",
+             "hand_kernels", "trace"}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    trace = tmp_path_factory.mktemp("trace")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert pp.main(ARGS + ["--runs", *(f"{r}@{BATCH}" for r in ROWS),
+                               "--trace-dir", str(trace), "--eval-batch"]) == 0
+    return [json.loads(line) for line in out.getvalue().splitlines()], trace
+
+
+@pytest.mark.parametrize("i", range(len(ROWS)))
+def test_row_line(run, i):
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    lines, trace = run
+    assert len(lines) == len(ROWS) + 1
+    line = lines[i]
+    assert set(line) == LINE_KEYS
+    row = ROWS[i]
+    depth = row != "rgb"
+    assert (line["row"], line["batch"], line["pose_batch"]) == (row, BATCH, BATCH)
+    assert line["name"] == {"rgb": "rgb_f32_towers", "rgbd_folded": "rgbd_folded_bf16",
+                            "rgbd_geometric_folded": "rgbd_geometric_folded_bf16"}[row]
+    assert (line["device"], line["clock"], line["sync_free"]) == ("cpu", "host", None)
+    assert line["full_prefix_equals_call"] is True
+    # the plain versions run on the CPU: no kernel launches, none traced
+    assert line["kernel_launches"] == {} and line["hand_kernels"] == {}
+
+    stages = {"convert", "detector", "decode_nms", "rgb_crop", "posenet", "rgb_tower_heads"}
+    stages |= {"depth_crop"} if depth else set()
+    stages |= {"depth_tower"} if row == "rgbd_folded" else set()
+    assert set(line["stages"]) == stages
+    for name, st in line["stages"].items():
+        assert set(st) == STAGE_KEYS, name
+        assert st["ms"] > 0 and st["host_enqueue_ms"] > 0, name
+        assert st["card_ms"] is None and st["idle_share"] is None and st["peak_share"] is None
+    summed = sum(line["stages"][k]["ms"] for k in pp.SUMMED if k in line["stages"])
+    assert line["sum_isolated_ms"] == pytest.approx(summed)
+    assert line["overhead_ms"] == pytest.approx(line["request"]["ms"] - summed)
+    assert line["sum_isolated_card_ms"] is None and line["card_overhead_ms"] is None
+    assert set(line["request"]) == STAGE_KEYS
+
+    names = [p["name"] for p in line["prefixes"]]
+    assert names == ["convert", "+detector", "+decode_nms", "+crop", "+normalize",
+                     "+depth_crop" if depth else "+pose_inputs", "+posenet", "+outputs",
+                     "__call__"]
+    prev = 0.0
+    for p in line["prefixes"]:
+        assert p["ms"] > 0 and p["delta_ms"] == pytest.approx(p["ms"] - prev)
+        prev = p["ms"]
+
+    # the FLOPs are the port's counts: the request's is the summed stages'
+    g = {k: v["gflop_per_frame"] for k, v in line["stages"].items()}
+    assert g["convert"] == g["decode_nms"] == 0 and g["detector"] > 0 and g["posenet"] > 0
+    assert g["rgb_crop"] == pytest.approx(2 * 3 * (120 * 160 * 64 + 64 * 120 * 64) / 1e9)
+    assert line["request"]["gflop_per_frame"] == pytest.approx(
+        sum(g[k] for k in pp.SUMMED if k in g))
+
+    # the trace: one request, each step in its own range, the ops each calls
+    assert line["trace"] == os.path.join(str(trace), f"{row}_b{BATCH}.json")
+    with open(line["trace"]) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("name", "").startswith("stage:")}
+    assert spans == {f"stage:{n.lstrip('+')}" for n in names[:-1]}
+    assert set(line["top_ops"]) == {n.lstrip("+") for n in names[:-1]}
+    assert any("conv" in op for op, _, _ in line["top_ops"]["posenet"])
+
+
+def test_eval_batch_line(run):
+    lines, _ = run
+    ev = lines[-1]["eval_batch"]
+    assert ev["frames"] == 8 and ev["device"] == "cpu" and ev["request_card_ms"] is None
+    parts = ("decode_ms", "ground_truth_ms", "request_enqueue_ms", "request_ms", "metrics_ms")
+    assert all(ev[k] > 0 for k in parts)
+    assert ev["total_ms"] >= ev["decode_ms"] + ev["ground_truth_ms"] + ev["request_ms"]
+    assert ev["addmin_launches"] == 0  # the plain version runs on the CPU
+
+
+@pytest.mark.parametrize("name", ["void stem_tc_kernel<3>(bf16 const*, bf16 const*)",
+                                  "_Z17wgmma_gemm_kernelILi128ELb1EEv6Params",
+                                  "void gemm_kernel<false>(float const*)", "addmin_kernel",
+                                  "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize",
+                                  "void cutlass::Kernel2<cutlass_80_tensorop_s16816gemm>"])
+def test_hand_kernel_names(name):
+    """The csrc kernels are found under a trace's demangled and mangled
+    names, and no library kernel is taken for one."""
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    m = pp.HAND_KERNELS.search(name)
+    want = {"void stem_tc_kernel<3>(bf16 const*, bf16 const*)": "stem_tc_kernel",
+            "_Z17wgmma_gemm_kernelILi128ELb1EEv6Params": "wgmma_gemm_kernel",
+            "void gemm_kernel<false>(float const*)": "gemm_kernel",
+            "addmin_kernel": "addmin_kernel"}.get(name)
+    assert (m.group(1) if m else None) == want
+
+
+def _xla_flops(model, shape, **kwargs) -> float:
+    import jax
+    import jax.numpy as jnp
+
+    x = jax.ShapeDtypeStruct(shape, jnp.float32)
+    variables = jax.eval_shape(lambda: model.init(jax.random.key(0), jnp.zeros(shape), **kwargs))
+    cost = jax.jit(lambda v, a: model.apply(v, a, **kwargs)).lower(variables, x).cost_analysis()
+    return float((cost[0] if isinstance(cost, (list, tuple)) else cost)["flops"])
+
+
+@pytest.mark.parametrize("what", ["resnet50_c3", "resnet50_c1", "yolov8n_640x480"])
+def test_flops_match_xla_cost_analysis(what):
+    from pose6d_tpu.models.resnet import ResNet50 as JResNet50
+    from pose6d_tpu.models.yolo.model import YoloConfig as JYoloConfig, YoloV8 as JYoloV8
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    if what.startswith("resnet50"):
+        C = 3 if what.endswith("c3") else 1
+        port = pp.tower_flops(C, 224)
+        xla = _xla_flops(JResNet50(in_channels=C), (1, 224, 224, C), train=False)
+    else:
+        port = pp.detector_flops(YoloConfig(), (480, 640))
+        xla = _xla_flops(JYoloV8(JYoloConfig(num_classes=13)), (1, 480, 640, 3))
+    assert abs(port - xla) <= FLOP_RTOL * xla, (what, port, xla)
+
+
+def test_refuses_without_a_card():
+    """No --device cpu and no card: exit 2, no JSON line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool runs on it")
+    r = subprocess.run([sys.executable, "-m", "pose6d_tpu_torch.ops.profile_pipeline",
+                        "--runs", "rgb@2"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 2 and r.stdout == "" and "--device cpu" in r.stderr
