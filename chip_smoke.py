@@ -38,8 +38,8 @@ Phases, each printed on its own line with its seconds:
      envelope in d^2 (addmin.expansion_d2_atol), and bit-equal over two
      launches and under a forced plan other than addmin_plan's, and with its
      argmin output (the ADD-S loss's) the same distances and an index that
-     is a nearest GT point, the same under both plans. The stem, layer1, stage
-     and addmin rows also carry the launch floor: floor_ms, the same event
+     is a nearest GT point, the same under both plans. The stem, layer1, stage,
+     addmin and gather rows also carry the launch floor: floor_ms, the same event
      timing around one empty launch, and stream_ms, 50 launches back to
      back in one event pair over 50, of the kernel and of the empty launch;
   4. slice rgbd: PosePipeline rgbd at full width (YOLOv8n on 640x480
@@ -192,14 +192,28 @@ Phases, each printed on its own line with its seconds:
      names (stem_tc_kernel, wgmma_gemm_kernel), every compute share under
      100 % and every time positive; prints each run's sum of isolated
      stages, request and overhead;
- 17. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add, train, CLI, mesh, learning and trace runs,
-     on the row of the kernel and the batch they ran at (the stem and
-     layer1 at 32 in phases 6 and 16, at 128 in phase 16, at 8 elsewhere;
-     addmin at 8 in phases 9, 13 and 16 and at 32 in phases 9, 10, 11, 13,
-     14 and 15; the gather at 32 in phases 10, 11, 13, 14 and 15; stages
-     3-4 at 8 in phases 13 and 16); a launch at a batch with no row fails
-     the run. The int8 convolution is
+ 17. evidence: the rest of the accuracy evidence through its CLIs, in this
+     process (phase_evidence): cli.parity_run --symmetric-objects
+     --rot-head-wide on folders 01, 02, 10 and 11 (80 frames each, 2
+     epochs, 224, batch 32, the split resident); parity_symmetric on its
+     `last` (ids 9 and 10 flagged symmetric, ADD-S at most ADD + 1e-6 m on
+     every object row, addmin once for the one val batch, counted from 0);
+     probe_rgbd_gradients at img 64, batch 4, 2 steps (every group of the
+     four configurations present and finite, trans_head 0); train_yolo 1
+     epoch at 96; selection_study over the run's checkpoints; the four
+     serving modes (float, int8, folded, folded with the stem and stage 1-4
+     kernels) through eval_e2e at batch 8 on the test split, the kernels
+     counted; one multi-object eval; serving_md, multiobj_md,
+     parity_summarize, parity_report and parity_diagnosis, and the
+     assembled PARITY_RESULTS.md holding every section written;
+ 18. kernels: one JSON line with every kernel's numbers; launches are the
+     sums over the slice, add, train, CLI, mesh, learning, trace and
+     evidence runs, on the row of the kernel and the batch they ran at (the
+     stem and layer1 at 32 in phases 6 and 16, at 128 in phase 16, at 8
+     elsewhere; addmin at 8 in phases 9, 13, 16 and 17 and at 32 in phases
+     9, 10, 11, 13, 14, 15 and 17; the gather at 32 in phases 10, 11, 13, 14,
+     15 and 17; stages 3-4 at 8 in phases 13, 16 and 17); a launch at a
+     batch with no row fails the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
 
@@ -547,7 +561,8 @@ def gather_row(store, rng):
     next of the 8 disjoint batches of one permutation of the 256 frames, as
     a train epoch draws them: its source was last read 7 runs (138 MB of
     depth words) earlier, so it is not in the 50 MB L2, as in the train
-    step."""
+    step. Both kinds also carry the launch floor (launch_costs), depth's
+    under depth_ keys."""
     from pose6d_tpu_torch.ops import gather_frames as gf
 
     dev = store.device
@@ -579,7 +594,10 @@ def gather_row(store, rng):
                      "ms": epoch_ms(lambda i: gf.gather_rows_u32(words, i)),
                      "plain_ms": epoch_ms(lambda i: gf._gather_rows_plain(words, i)),
                      "library_ms": epoch_ms(lambda i: words.index_select(0, i)),
-                     "bound_ms": b_ms, "bound_by": b_by}
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     # the launch floor beside it, as the other rows carry it (the
+                     # back-to-back launches gather one batch: its rows stay in L2)
+                     **launch_costs(lambda: gf.gather_rows_u32(words, batches[0]))}
     row = {**row_id("gather_rows_u32", 32, home=32), "route": "cuda",
            "source": "pose6d_tpu_torch/csrc/gather.cu",
            "replaces": "pose6d_tpu/ops/gather_frames.py:60", **out["rgb"]}
@@ -2862,6 +2880,195 @@ def phase_trace(smi: str):
     return counts, lines, ev
 
 
+# phase 17: the evidence tools (cli/parity_symmetric.py, probe_rgbd_gradients.py,
+# selection_study.py, serving_md.py, multiobj_md.py, parity_summarize.py,
+# parity_report.py, parity_diagnosis.py) on a small symmetric run: folders 01
+# and 02 and the symmetric 10 and 11, 80 frames each, so that the val split
+# (8 a folder) is one batch of 32 holding all four objects and the test split
+# four batches of BATCH
+EVIDENCE_ARGS = ["--objects", 2, "--frames", 80, "--epochs", 2, "--variants", "rgbd_geometric",
+                 "--rot-head-wide", "--symmetric-objects"]
+EVIDENCE_FRAMES = 4 * 80
+PROBE_ARGS = ["--img-size", 64, "--batch-size", 4, "--steps", 2]
+PROBE_GROUPS = {"rgb": {"rgb_backbone", "rot_head", "trans_head"},
+                "rgbd": {"rgb_backbone", "depth_backbone", "attention", "fusion", "rot_head",
+                         "trans_head"},
+                "rgbd_noattn": {"rgb_backbone", "depth_backbone", "fusion", "rot_head",
+                                "trans_head"},
+                "rgbd_widehead": {"rgb_backbone", "depth_backbone", "attention", "fusion",
+                                  "rot_head", "trans_head"}}
+SCENE_FRAMES = 10  # the multi-object eval's scene (objects 1 and 2): 8 train frames, one batch
+
+
+def run_cli_logged(name: str, argv: list, log_path: str) -> str:
+    """run_cli, its stdout also written to log_path (the logs the markdown
+    CLIs parse)."""
+    text, _ = run_cli(name, argv)
+    with open(log_path, "w") as f:
+        f.write(text)
+    return text
+
+
+def phase_evidence(smi: str):
+    """The rest of the accuracy evidence through its CLIs, in this process
+    on the card (run_cli), in _build/smoke_evidence/ (deleted at the end):
+    cli.parity_run at EVIDENCE_ARGS (224, batch 32, the split resident);
+    parity_symmetric on its `last` (ids 9 and 10 flagged symmetric, ADD-S
+    at most ADD + 1e-6 m on every object row, one addmin launch for the one
+    val batch); probe_rgbd_gradients at PROBE_ARGS (every group of every
+    configuration present and finite, trans_head 0 under trans_weight 0);
+    train_yolo 1 epoch at 96; selection_study over the run's checkpoints
+    (eval_e2e in this process at its batch 32, one addmin launch each);
+    the four serving modes through eval_e2e at BATCH on the test split
+    (folded_kernels: the stem and stage 1-4 kernels once per batch); one
+    multi-object eval on a scene of objects 1 and 2; then serving_md,
+    multiobj_md, parity_summarize, parity_report and parity_diagnosis, and
+    the assembled PARITY_RESULTS.md holding every section written. Returns
+    ({(kernel, batch): launches}, the readings)."""
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.cli import parity_md, selection_study, serving_md
+    from pose6d_tpu_torch.data.synthetic import generate_synthetic_scene, recover_object_colors
+
+    wd = os.path.join(_build.BUILD_DIR, "smoke_evidence")
+    run = "rgbd_geometric_widehead"
+    data, models = os.path.join(wd, "synth", "data"), os.path.join(wd, "synth", "models")
+    logs = os.path.join(wd, "logs")
+    counts, secs = collections.Counter(), {}
+    shutil.rmtree(wd, ignore_errors=True)
+    os.makedirs(logs)
+    with open(os.path.join(wd, "device.txt"), "w") as f:
+        f.write(smi + "\n")
+
+    def launched(what: str, batch: int, want: dict) -> None:
+        got = dict(_build.launch_counts)
+        check(got == want, f"{what}: launches {got}, expected {want}")
+        counts.update({(k, batch): v for k, v in got.items()})
+        _build.launch_counts.clear()
+
+    def eval_argv(*extra) -> list:
+        return ["--variant", "rgbd_geometric", "--rot-head-wide", "--data-root", data,
+                "--mesh-dir", models, "--yolo-weights", os.path.join(wd, "yolo"),
+                "--pose-weights", os.path.join(wd, f"weights_{run}"), *extra]
+
+    try:
+        t0 = time.perf_counter()
+        _build.launch_counts.clear()
+        run_cli("parity_run", ["--workdir", wd] + EVIDENCE_ARGS)
+        steps = 2 * (EVIDENCE_FRAMES * 8 // 10 // 32)
+        launched("parity_run --symmetric-objects", 32,
+                 {"gather_rows_u32": 2 * steps, "pairwise_min_dist": 2})
+        check(sorted(os.listdir(data)) == ["01", "02", "10", "11"], f"fixture {os.listdir(data)}")
+        secs["parity_run"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        run_cli("parity_symmetric", ["--workdir", wd, "--sym-workdir", wd, "--checkpoint", "last"])
+        launched("parity_symmetric", 32, {"pairwise_min_dist": 1})
+        with open(os.path.join(wd, "symmetric_breakdown.json")) as f:
+            per_obj = {int(k): v for k, v in json.load(f)["per_object"].items()}
+        check(sorted(per_obj) == [0, 1, 9, 10]
+              and [k for k, o in per_obj.items() if o["symmetric"]] == [9, 10],
+              f"symmetric breakdown objects {per_obj}")
+        check(all(o["add_s_mm"] <= o["add_mm"] + 1e-3 for o in per_obj.values()),
+              f"ADD-S above ADD: {per_obj}")
+        secs["parity_symmetric"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        run_cli("probe_rgbd_gradients", ["--workdir", wd] + PROBE_ARGS)
+        launched("probe_rgbd_gradients", 0, {})
+        with open(os.path.join(wd, "rgbd_gradient_probe.json")) as f:
+            probe = json.load(f)
+        check(sorted(probe) == sorted(PROBE_GROUPS), f"probe configurations {sorted(probe)}")
+        for name, groups in PROBE_GROUPS.items():
+            r = probe[name]
+            for phase in ("init", "final"):
+                g = r["grad_rms"][phase]
+                check(set(g) == groups and all(np.isfinite(v) for v in g.values())
+                      and g["trans_head"] == 0.0,
+                      f"probe {name} {phase}: {g} (groups {sorted(groups)}, trans_head 0)")
+            check(np.isfinite(r["loss_first"]) and np.isfinite(r["loss_last"]),
+                  f"probe {name} losses {r}")
+        secs["probe"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        run_cli("train_yolo", ["--data-root", data, "--save-dir", os.path.join(wd, "yolo"),
+                               "--epochs", 1, "--img-size", 96])
+        launched("train_yolo", 0, {})
+        secs["train_yolo"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ckpts = [c for c in ("best", "best_deploy", "last")
+                 if os.path.isfile(os.path.join(wd, f"weights_{run}", f"{c}.pt"))]
+
+        def in_process(cmd):  # selection_study's eval_e2e, counted in this process
+            return 0, run_cli(cmd[2].rsplit(".", 1)[1], cmd[3:])[0]
+
+        selection_study.main(["--workdir", wd, "--variants", run], runner=in_process)
+        launched("selection_study", 32, {"pairwise_min_dist": len(ckpts)})
+        with open(os.path.join(wd, "selection_results.json")) as f:
+            sel = json.load(f)
+        check(sorted(sel[run]) == sorted(ckpts)
+              and all("add01d_full" in sel[run][c] for c in ckpts),
+              f"selection results {sel} for checkpoints {ckpts}")
+        secs["selection_study"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        test_batches = EVIDENCE_FRAMES // 10 // BATCH
+        kernels = {"fused_stem_c3": test_batches,
+                   **{f"fused_stage_s{k}": test_batches for k in (1, 2, 3, 4)}}
+        for mode, flags in serving_md.MODE_FLAGS.items():
+            run_cli_logged("eval_e2e", eval_argv("--split", "test", "--batch-size", BATCH, *flags),
+                           os.path.join(logs, f"e2e_{mode}_{run}.log"))
+            launched(f"eval_e2e {mode}", BATCH, {"pairwise_min_dist": test_batches,
+                                                 **(kernels if mode == "folded_kernels" else {})})
+        rows = serving_md.gate_rows(logs, [run])
+        check([k for _, k, _, _ in rows] == list(serving_md.MODE_FLAGS)
+              and all(len(r) == len(serving_md.PATTERNS) for *_, r in rows),
+              f"serving gate rows {rows}")
+        secs["serving"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        scene = os.path.join(wd, "synth_scene")
+        colors = recover_object_colors(data)
+        generate_synthetic_scene(scene, {k: colors[k] for k in (1, 2)}, frames=SCENE_FRAMES,
+                                 seed=9, max_angle_deg=75.0, write_models=False)
+        run_cli_logged("eval_e2e", ["--variant", "rgbd_geometric", "--rot-head-wide",
+                                    "--data-root", os.path.join(scene, "data"),
+                                    "--mesh-dir", models,
+                                    "--yolo-weights", os.path.join(wd, "yolo"),
+                                    "--pose-weights", os.path.join(wd, f"weights_{run}"),
+                                    "--max-objects", 4, "--classes", "1,2,10,11",
+                                    "--split", "train", "--batch-size", BATCH],
+                       os.path.join(logs, f"e2e_multiobj_base_{run}.log"))
+        # addmin runs on the matched pairs only: as many launches as chunks of them
+        multi = dict(_build.launch_counts)
+        check(set(multi) <= {"pairwise_min_dist"}, f"multi-object eval launches {multi}")
+        counts.update({(k, BATCH * 4): v for k, v in multi.items()})
+        _build.launch_counts.clear()
+        secs["multiobj"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for name, argv in (("serving_md", ["--variants", run]),
+                           ("multiobj_md", ["--variants", run]),
+                           ("parity_summarize", ["--objects", 2, "--frames", 80]),
+                           ("parity_report", ["--serving-variants", run]),
+                           ("parity_diagnosis", [])):
+            run_cli(name, ["--workdir", wd] + argv)
+        launched("the markdown CLIs", 0, {})
+        written = sorted(f[:-3] for f in os.listdir(parity_md.section_dir(wd)))
+        want = sorted(["base", "symmetric", "selection", "serving", "multiobj", "narrative",
+                       "diagnosis"])
+        check(written == want, f"sections written {written}, expected {want}")
+        with open(os.path.join(wd, "PARITY_RESULTS.md")) as f:
+            doc = f.read()
+        missing = [h for n, h in parity_md.SECTIONS if n in written and h not in doc]
+        check(not missing and smi in doc, f"PARITY_RESULTS.md lacks {missing} or the card")
+        secs["markdown"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return dict(counts), {"secs": secs, "per_object": per_obj, "selection": sel[run],
+                          "checkpoints": ckpts, "serving": rows}
+
+
 def setup(rng, rng_new, device):
     """Seeded full-width weights; per path (rgbd with the stem and layer1
     kernels, rgbd_geometric with the stem and stage 1-2 kernels, rgb with
@@ -3120,13 +3327,27 @@ def main() -> int:
         + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(trace_counts.items()))
         + f" ({time.perf_counter() - t0:.1f}s)")
 
+    t0 = time.perf_counter()
+    ev_counts, evidence = phase_evidence(smi)
+    for (k, batch), v in sorted(ev_counts.items()):
+        count({k: v}, batch)
+    sym = [f"obj {oid + 1:02d} {o['add01d_pct']:.1f}%"
+           for oid, o in evidence["per_object"].items() if o["symmetric"]]
+    log(f"[phase 17 evidence] parity_run --symmetric-objects, parity_symmetric (ADD-0.1d "
+        f"{', '.join(sym)} through ADD-S), probe_rgbd_gradients, selection_study over "
+        f"{'/'.join(evidence['checkpoints'])}, the four serving gates at {BATCH}, a "
+        f"multi-object eval and the markdown CLIs on {smi}: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in evidence["secs"].items())
+        + "; launches " + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(ev_counts.items()))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
     # the b32 addmin row: phase 3's inputs and the eval step's
     r = by_id[("pairwise_min_dist", 32)]
     r["max_abs_err"] = max(r["max_abs_err"], train["addmin_max_abs_err"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("shape", "floor_ms", "stream_ms", "floor_stream_ms")
-    log(f"[phase 17 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
+    log(f"[phase 18 kernels] " + ", ".join(f"{r['name']}: {r['launches']} launches, pass"
                                           for r in rows)
         + "; serving smoke readings " + ", ".join(f"{v} {r['fps']:.1f} frames/s"
                                                    for v, r in serving.items())

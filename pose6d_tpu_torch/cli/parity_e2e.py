@@ -9,7 +9,9 @@ cli/parity_run.py:
      the test split for each variant whose weights_<variant>/best.pt
      exists; a run name's parity_run suffixes (_widehead, ...) become
      eval_e2e's flags;
-  3. write e2e_results.json (merged across calls) and E2E.md, the table.
+  3. write e2e_results.json (merged across calls) and E2E.md, the table
+     (also the `e2e` section of <workdir>/PARITY_RESULTS.md,
+     cli/parity_md.py).
 
   python -m pose6d_tpu_torch.cli.parity_e2e --workdir /tmp/pose6d_torch_parity \\
       --variants rgbd_geometric
@@ -77,13 +79,16 @@ def eval_args(name: str) -> tuple:
 
 
 def write_markdown(args, results: dict) -> str:
+    """E2E.md and the `e2e` section; returns E2E.md's path."""
+    from pose6d_tpu_torch.cli.parity_md import card_of, write_section
+
     path = os.path.join(args.workdir, "E2E.md")
     parts = [
         "## Full-system (detector-in-the-loop) evaluation, pose6d_tpu_torch\n\n"
         f"YOLOv8n trained {args.epochs} epochs on the fixture (the reference recipe), then "
         "the deployed pipeline, detector -> crop on the card -> pose net, evaluated on the "
         f"{args.split} split by `python -m pose6d_tpu_torch.cli.eval_e2e` "
-        f"(device {args.device}).\n\n"
+        f"(device {args.device}; {card_of(args.workdir)}).\n\n"
         "| variant | det rate % | cls acc % | ADD mm | ADD-S mm | "
         "ADD-0.1d (detected) % | ADD-0.1d (full system) % |\n"
         "|---|---|---|---|---|---|---|\n"
@@ -95,6 +100,7 @@ def write_markdown(args, results: dict) -> str:
                      f"| {r.get('add01d_det', nan):.2f} | {r.get('add01d_full', nan):.2f} |\n")
     with open(path, "w") as f:
         f.writelines(parts)
+    write_section(args.workdir, "e2e", "".join(parts))
     return path
 
 

@@ -24,8 +24,9 @@ towers and real data), as the JAX script makes them:
 The fixture is generated once under <workdir>/synth (objects 1..N, and
 with --symmetric-objects folders 10 and 11); each variant trains into
 <workdir>/weights_<name>/ (resumable: {last,best,best_deploy}.pt and
-metrics.csv), and results.json and PARITY.md (the table) are rewritten
-after each. The run name carries the flags' suffixes (_widehead, _noattn,
+metrics.csv), and results.json and PARITY.md (the table, also the
+`base` section of <workdir>/PARITY_RESULTS.md, cli/parity_md.py) are
+rewritten after each. The run name carries the flags' suffixes (_widehead, _noattn,
 _zeroattn, _zbb, _zwide, _bf16, _warmstart). The train split is resident
 on the card (the gather kernel) unless --no-device-preprocess; validation
 reads through the host loader (the addmin kernel).
@@ -86,16 +87,19 @@ def flags_of(name: str) -> dict:
             "compute_dtype": "bfloat16" if "_bf16" in name else "float32"}
 
 
-def write_markdown(args, results: dict, path: str) -> None:
+def write_markdown(args, results: dict) -> str:
     """The results table, as the JAX script's base table of
-    PARITY_RESULTS.md."""
+    PARITY_RESULTS.md: <workdir>/PARITY.md and the `base` section.
+    Returns PARITY.md's path."""
+    from pose6d_tpu_torch.cli.parity_md import card_of, write_section
+
     lines = [
         "# Accuracy-parity evidence (synthetic fixture), pose6d_tpu_torch\n\n",
         f"Trained by `python -m pose6d_tpu_torch.cli.parity_run` ({args.objects} objects x "
         f"{args.frames} frames, rotations in a {args.max_angle_deg:.0f}-degree geodesic ball, "
         f"lr {args.lr}, plateau patience {args.patience}, batch {args.batch_size}, early stop "
-        f"at {args.early_stop_acc}% val ADD-0.1d, seed {args.seed}, device {args.device}). "
-        "Per-epoch curves: `weights_<variant>/metrics.csv`.\n\n",
+        f"at {args.early_stop_acc}% val ADD-0.1d, seed {args.seed}, device {args.device}; "
+        f"{card_of(args.workdir)}). Per-epoch curves: `weights_<variant>/metrics.csv`.\n\n",
         "| variant | best val ADD-0.1d % | best epoch | epochs run | "
         "ADD mm @ best | ADD-S mm @ best | final train loss |\n",
         "|---|---|---|---|---|---|---|\n",
@@ -104,8 +108,11 @@ def write_markdown(args, results: dict, path: str) -> None:
         lines.append(f"| {v} | {r['best_add01d']:.2f} | {r['best_epoch']} | {r['epochs_run']} "
                      f"| {r['val_add_mm_at_best']:.1f} | {r['val_add_s_mm_at_best']:.1f} "
                      f"| {r['final_train_loss']:.4f} |\n")
+    path = os.path.join(args.workdir, "PARITY.md")
     with open(path, "w") as f:
         f.writelines(lines)
+    write_section(args.workdir, "base", "".join(lines))
+    return path
 
 
 def warm_start(trainer, args, variant: str) -> None:
@@ -224,7 +231,7 @@ def main(argv=None):
         results[name] = summarize_variant(save_dir, best)
         with open(results_path, "w") as f:
             json.dump(results, f, indent=2)
-        write_markdown(args, results, os.path.join(args.workdir, "PARITY.md"))
+        write_markdown(args, results)
 
     print("\n=== summary (val ADD-0.1d %, synthetic fixture) ===")
     for name, r in results.items():

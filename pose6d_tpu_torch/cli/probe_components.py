@@ -14,7 +14,8 @@ A run name carries parity_run's suffixes (weights_<name>/); its flags
 build the architecture it was trained with. The checkpoint is read with
 train/checkpoint.CheckpointManager; a .pt is replaced by rename, so a read
 during training sees the previous file or the next one whole. Writes
-probe_results.json and PROBE.md (the two tables) in --workdir.
+probe_results.json and PROBE.md (the two tables; also the `attribution`
+section of <workdir>/PARITY_RESULTS.md, cli/parity_md.py) in --workdir.
 """
 
 import argparse
@@ -161,9 +162,13 @@ def main(argv=None):
     if rows:
         with open(os.path.join(args.workdir, "probe_results.json"), "w") as f:
             json.dump(rows, f, indent=2)
+        from pose6d_tpu_torch.cli.parity_md import write_section
+
         path = os.path.join(args.workdir, "PROBE.md")
+        text = markdown(rows)
         with open(path, "w") as f:
-            f.write(markdown(rows))
+            f.write(text)
+        write_section(args.workdir, "attribution", text)
         print(f"wrote probe_results.json and {path}")
 
 

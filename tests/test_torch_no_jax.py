@@ -2,8 +2,8 @@
 torchvision, ultralytics, cv2, PyYAML, PIL or the JAX package: every
 submodule imports in a fresh interpreter in which those names are blocked
 (the card's machine has none of them installed), the detector-training
-modules, the converters, the generator, utils, every CLI and the request
-trace among them;
+modules, the converters, the generator, utils, every CLI (the evidence tools
+too) and the request trace among them;
 the LineMOD loader, the parser, the detector trainer and the synthetic
 generator's CLI also run there."""
 
@@ -29,7 +29,10 @@ WORKFLOW_MODULES = tuple(f"pose6d_tpu_torch.{m}" for m in (
     "parallel", "parallel.mesh", "parallel.collectives", "parallel.heads",
     "cli.compare_visual", "cli.visualize_yolo", "cli.package_weights", "cli.setup_weights",
     "cli.parity_run", "cli.parity_e2e", "cli.probe_components", "cli.reproduce",
-    "ops.profile_pipeline", "data.seeded_tree"))
+    "ops.profile_pipeline", "data.seeded_tree",
+    "cli.parity_md", "cli.parity_symmetric", "cli.probe_rgbd_gradients", "cli.parity_diagnosis",
+    "cli.selection_study", "cli.serving_md", "cli.multiobj_md", "cli.parity_summarize",
+    "cli.parity_report"))
 
 _PROBE = """
 import importlib, importlib.abc, sys

@@ -8,7 +8,8 @@
   - a tiny parity_run on the CPU (2 objects x 10 frames, img 32, 1 epoch,
     rgbd_geometric with the wide head): results.json, metrics.csv, the
     weights and PARITY.md, a second call resuming; probe_components on its
-    weights; parity_e2e's table from saved results;
+    weights; parity_e2e's table from saved results; the three tables are
+    also the base, attribution and e2e sections of PARITY_RESULTS.md;
   - reproduce without --resnet50-pth exits 2 naming resnet50 and writes
     nothing; its stages, their order and the gate with subprocess faked;
     its dry run on the CPU is slow, as tests/test_reproduce_dryrun.py's
@@ -98,6 +99,9 @@ def test_tiny_parity_run_probe_and_table(tmp_path, capsys):
     assert len(rows) == 1 and all(math.isfinite(float(v)) for v in rows[0].values())
     assert {"last.pt", "best_deploy.pt"} <= set(os.listdir(save_dir))
     assert f"| {name} |" in open(os.path.join(wd, "PARITY.md")).read()
+    # the same table is the document's `base` section (cli/parity_md.py)
+    assert open(os.path.join(wd, "sections", "base.md")).read() == \
+        open(os.path.join(wd, "PARITY.md")).read()
     # a second call resumes: the epoch is done, nothing more trains
     parity_run.main(argv)
     assert len(list(csv.DictReader(open(os.path.join(save_dir, "metrics.csv"))))) == 1
@@ -112,6 +116,8 @@ def test_tiny_parity_run_probe_and_table(tmp_path, capsys):
     assert all(math.isfinite(probe[0][k])
                for k in ("val_geodesic_deg", "val_xy_err_mm", "val_z_err_mm"))
     assert "| obj 01 (d=121mm) | obj 02 (d=163mm) |" in open(os.path.join(wd, "PROBE.md")).read()
+    assert open(os.path.join(wd, "sections", "attribution.md")).read() == \
+        open(os.path.join(wd, "PROBE.md")).read()
     for f in os.listdir(save_dir):
         if f.endswith(".pt"):
             os.remove(os.path.join(save_dir, f))
@@ -121,6 +127,9 @@ def test_tiny_parity_run_probe_and_table(tmp_path, capsys):
               open(os.path.join(wd, "e2e_results.json"), "w"))
     parity_e2e.main(["--workdir", wd, "--md-only", "--device", "cpu"])
     assert f"| {name} | 99.0 | nan |" in open(os.path.join(wd, "E2E.md")).read()
+    doc = open(os.path.join(wd, "PARITY_RESULTS.md")).read()
+    assert doc.index("# Accuracy-parity evidence") < doc.index("## Component attribution") \
+        < doc.index("## Full-system (detector-in-the-loop) evaluation")
 
 
 def test_reproduce_refuses_without_resnet50(tmp_path):
