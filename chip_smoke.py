@@ -206,14 +206,32 @@ Phases, each printed on its own line with its seconds:
      counted; one multi-object eval; serving_md, multiobj_md,
      parity_summarize, parity_report and parity_diagnosis, and the
      assembled PARITY_RESULTS.md holding every section written;
+ 19. profilers (run after 17 and before the kernels line, 18, which sums
+     its launches too): the sweeps and the int8 and train profilers of the
+     request trace's tool (ops/profile_sweep.py, profile_int8.py,
+     profile_train.py) in this process at windows of PROFILER_WINDOW and
+     readings of one launch (phase_profilers). First the stems (C=3, C=1)
+     and layer1 held against their plain versions at 192 and 256 (the rgbd
+     path's crops tiled; rows of their own, as phase 3's), the batches the
+     rgbd sweep serves at. Then --nomodel 32 (the augment prefix bit-equal
+     to expand_device_batch + train_augment, 2 gathers a prefix),
+     --train-split rgbd@32, --train-step rgbd@32 (f32 and bf16, 2 gathers a
+     step, finite losses) on PROFILER_FRAMES resident frames; --int8-split
+     8 and --int8-variants 8 (the bf16 tower through the stem and stage
+     1-4 kernels within PROFILER_BF16_REL of cuDNN's, D's last prefix equal
+     to A, B_vs_A_rel_drift 0); --sweep rgb at 8 and --sweep rgbd at
+     SWEEP_BATCHES, 192 and 256 (phase 16 reads 128; bf16_params equal bit
+     for bit to no cast, the stem and layer1 launches of each request).
+     Every time positive and every card time read;
  18. kernels: one JSON line with every kernel's numbers; launches are the
-     sums over the slice, add, train, CLI, mesh, learning, trace and
-     evidence runs, on the row of the kernel and the batch they ran at (the
-     stem and layer1 at 32 in phases 6 and 16, at 128 in phase 16, at 8
-     elsewhere; addmin at 8 in phases 9, 13, 16 and 17 and at 32 in phases
-     9, 10, 11, 13, 14, 15 and 17; the gather at 32 in phases 10, 11, 13, 14,
-     15 and 17; stages 3-4 at 8 in phases 13, 16 and 17); a launch at a
-     batch with no row fails the run. The int8 convolution is
+     sums over the slice, add, train, CLI, mesh, learning, trace,
+     evidence and profiler runs, on the row of the kernel and the batch
+     they ran at (the stem and layer1 at 32 in phases 6 and 16, at 128 in
+     phases 16 and 19, at 192 and 256 in phase 19, at 8 elsewhere; addmin
+     at 8 in phases 9, 13, 16 and 17 and at 32 in phases 9, 10, 11, 13, 14,
+     15 and 17; the gather at 32 in phases 10, 11, 13, 14, 15, 17 and 19;
+     stages 3-4 at 8 in phases 13, 16, 17 and 19); a launch at a batch
+     with no row fails the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
 
@@ -272,6 +290,10 @@ INT8_MIN_COS = 0.9     # int8 vs bf16 towers and detector maps: catches scale or
 TRACE_BIG_BATCH = 128  # the request trace's rgbd folded batch (the JAX benchmark's)
 TRACE_WINDOW = 6       # phase 16: launches in a timed window
 TRACE_REPS = 2         # phase 16: single launches per host and card reading
+SWEEP_BATCHES = (192, 256)  # phase 19's rgbd sweep: bench_sweep_rgbd.py's above phase 16's 128
+PROFILER_WINDOW = 3    # phase 19: launches (train steps) in a timed window
+PROFILER_FRAMES = 128  # phase 19: resident frames of the train profilers (the tool's 512)
+PROFILER_BF16_REL = 0.05  # phase 19: bf16 tower through the kernels vs cuDNN, rel-L2
 
 
 class CheckFailed(RuntimeError):
@@ -2880,6 +2902,105 @@ def phase_trace(smi: str):
     return counts, lines, ev
 
 
+# phase 19: the launches one request of the rgbd sweep's row makes
+SWEEP_RGBD_EXPECT = {"fused_stem_c3": 1, "fused_stem_c1": 1, "fused_layer1": 2}
+INT8_BF16_EXPECT = {"fused_stem_c3": 1, **{f"fused_stage_s{k}": 1 for k in (1, 2, 3, 4)}}
+
+
+def big_batch_rows(pipe, tower_inputs) -> list:
+    """The stems (C=3, C=1) and layer1 of the rgbd path at each of
+    SWEEP_BATCHES (its crops tiled), against their plain versions and
+    timed as phase 3's rows: the batches phase 19's rgbd sweep serves at."""
+    from pose6d_tpu_torch.ops.quant import fold_bn_resnet
+
+    rows = []
+    for batch in SWEEP_BATCHES:
+        reps = batch // BATCH
+        for C, name in ((3, "rgb_backbone"), (1, "depth_backbone")):
+            tree = fold_bn_resnet(getattr(pipe.posenet, name))
+            x = (tower_inputs["rgb"] if C == 3 else tower_inputs["depth"]).repeat(reps, 1, 1, 1)
+            row, out = stem_row(tree, x.contiguous(), f"fused_stem_c{C}")
+            rows.append(row)
+            if C == 3:
+                rows.append(layer1_row(tree, out, "fused_layer1"))
+            del x, out
+    return rows
+
+
+def phase_profilers(smi: str):
+    """The sweeps and the int8 and train profilers in this process (see
+    the module docstring, phase 19). Writes the JSON lines to
+    _build/profilers.jsonl. Returns (launches by (kernel, batch), the
+    lines)."""
+    import argparse
+
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.ops import profile_int8, profile_sweep, profile_train
+
+    args = argparse.Namespace(device="cuda", frame_hw=[FRAME_H, FRAME_W], img_size=224,
+                              det_size=640, window=PROFILER_WINDOW, reps=1,
+                              train_frames=PROFILER_FRAMES)
+    counts, lines = collections.Counter(), {}
+
+    def run(key, batch, fn):
+        t0 = time.perf_counter()
+        _build.launch_counts.clear()
+        line = fn()
+        if batch is not None:
+            counts.update({(k, batch): v for k, v in _build.launch_counts.items()})
+        readings = [r for r in line.get("readings", {}).values()] + [
+            a for a in line.get("arms", {}).values()]
+        check(readings and all(r[k] is not None and r[k] > 0 for r in readings
+                               for k in ("ms", "host_enqueue_ms", "card_ms")),
+              f"{key}: a time is not positive or the card's time was not read: {readings}")
+        lines[key] = line
+        log(f"  {key}: " + ", ".join(f"{k} {v:.3f}" for k, v in line.items()
+                                     if isinstance(v, float))
+            + f" on {smi} ({time.perf_counter() - t0:.1f}s)")
+        return line
+
+    line = run("nomodel", 32, lambda: profile_train.nomodel(32, args))
+    check(line["full_prefix_equals_expand_augment"], "nomodel: the augment prefix differs")
+    check(all(line["kernel_launches"][k] == ({} if k == "gather_take"
+                                             else {"gather_rows_u32": 2})
+              for k in profile_train.NOMODEL_STAGES),
+          f"nomodel: launches {line['kernel_launches']}")
+    line = run("train_split", 32, lambda: profile_train.train_split("rgbd", 32, args))
+    check(line["kernel_launches"]["gather_crop_rgb"] == {"gather_rows_u32": 1}
+          and line["kernel_launches"]["fwd_bwd_adamw"] == {},
+          f"train_split: launches {line['kernel_launches']}")
+    line = run("train_step", 32, lambda: profile_train.train_step("rgbd", 32, args))
+    check(all(line[dt]["losses_finite"] for dt in profile_train.DTYPES)
+          and all(line["kernel_launches"][dt] == {"gather_rows_u32": 2.0}
+                  for dt in profile_train.DTYPES),
+          f"train_step: losses or launches {line['kernel_launches']}")
+    for tool in ("int8_split", "int8_variants"):
+        line = run(tool, BATCH, lambda tool=tool: getattr(profile_int8, tool)(BATCH, args))
+        bf16 = "tower_bf16" if tool == "int8_split" else "bf16"
+        check(line["kernel_launches"][bf16] == INT8_BF16_EXPECT
+              and line["tower_bf16"] == "folded_bf16_stem_s1234"
+              and line["tower_bf16_vs_cudnn_rel_l2"] < PROFILER_BF16_REL,
+              f"{tool}: the bf16 tower launched {line['kernel_launches'][bf16]}, rel-L2 to "
+              f"cuDNN {line['tower_bf16_vs_cudnn_rel_l2']}")
+    check(lines["int8_variants"]["D_last_prefix_equals_A"]
+          and lines["int8_variants"]["B_vs_A_rel_drift"] == 0.0,
+          f"int8_variants: D's last prefix or B's drift {lines['int8_variants']}")
+    rng = np.random.default_rng(SEED + 20)
+    for kind, batches in (("rgb", (BATCH,)), ("rgbd", SWEEP_BATCHES)):
+        line = run(f"sweep_{kind}", None,
+                   lambda kind=kind, batches=batches: profile_sweep.sweep(kind, batches, args, rng))
+        for b, launched in line["launches_by_batch"].items():
+            counts.update({(k, int(b)): v for k, v in launched.items()})
+        want = {} if kind == "rgb" else SWEEP_RGBD_EXPECT
+        check(line["bf16_params_equal"]
+              and all(a["kernel_launches"] == want for a in line["arms"].values()),
+              f"sweep {kind}: bf16_params differs or a request launched "
+              f"{[a['kernel_launches'] for a in line['arms'].values()]}")
+    with open(os.path.join(os.path.dirname(_build.LIB_PATH), "profilers.jsonl"), "w") as f:
+        f.writelines(json.dumps(x) + "\n" for x in lines.values())
+    return counts, lines
+
+
 # phase 17: the evidence tools (cli/parity_symmetric.py, probe_rgbd_gradients.py,
 # selection_study.py, serving_md.py, multiobj_md.py, parity_summarize.py,
 # parity_report.py, parity_diagnosis.py) on a small symmetric run: folders 01
@@ -3339,6 +3460,34 @@ def main() -> int:
         f"multi-object eval and the markdown CLIs on {smi}: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in evidence["secs"].items())
         + "; launches " + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(ev_counts.items()))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        big = big_batch_rows(paths["rgbd"][0], inputs["rgbd"])
+    for r in big:
+        check((r["kernel"], r["batch"]) not in by_id, f"a second row of {r['name']}")
+        r["launches"] = 0
+        by_id[(r["kernel"], r["batch"])] = r
+        rows.append(r)
+        log(f"  {r['name']}: f32 max_abs_err {r['max_abs_err']:.3g}, bf16 mean/max err "
+            f"{r['bf16_mean_err']:.3g}/{r['bf16_max_err']:.3g}  ms {r['ms']:.4f}  plain_ms "
+            f"{r['plain_ms']:.4f}  library_ms {r['library_ms']:.4f}  bound_ms "
+            f"{r['bound_ms']:.5f} ({r['bound_by']})")
+    prof_counts, prof = phase_profilers(smi)
+    for (k, batch), v in sorted(prof_counts.items()):
+        count({k: v}, batch)
+    log(f"[phase 19 profilers] the stems and layer1 at "
+        f"{'/'.join(str(r['batch']) for r in big if r['kernel'] == 'fused_layer1')} against "
+        f"their plain versions; nomodel, train_split and train_step at 32, int8_split and "
+        f"int8_variants at {BATCH}, sweep rgb at {BATCH} and rgbd at "
+        f"{'/'.join(map(str, SWEEP_BATCHES))} on {smi}: rgbd "
+        + ", ".join(f"b{b} {prof['sweep_rgbd'][f'b{b}']:.1f}" for b in SWEEP_BATCHES)
+        + f" frames/s; train step f32 {prof['train_step']['float32']['ms_per_step']:.3f} / "
+          f"bf16 {prof['train_step']['bfloat16']['ms_per_step']:.3f} ms; tower bf16 "
+          f"{prof['int8_split']['tower_bf16_ms']:.3f} / int8 "
+          f"{prof['int8_split']['tower_int8_ms']:.3f} ms; launches "
+        + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(prof_counts.items()))
         + f" ({time.perf_counter() - t0:.1f}s)")
 
     # the b32 addmin row: phase 3's inputs and the eval step's

@@ -1,9 +1,21 @@
 """The request trace: serving requests split into their stages on the card
 (counterpart of scripts/profile_pipeline.py, profile_pipeline_prefix.py and
-profile_rgbd_stages.py, as one tool). It records; it changes nothing.
+profile_rgbd_stages.py, as one tool), with the sweeps and the int8 and
+train profilers as further runs of it. It records; it changes nothing.
 
     python -m pose6d_tpu_torch.ops.profile_pipeline [--runs ROW@BATCH ...]
         [--trace-dir DIR] [--eval-batch] [--device cuda]
+        [--sweep rgb|rgbd [--sweep-batches B ...]]
+        [--int8-split BATCH ...] [--int8-variants BATCH ...]
+        [--nomodel BATCH] [--train-split VARIANT@BATCH]
+        [--train-step VARIANT@BATCH] [--train-frames N]
+
+Without any of --sweep, --int8-*, --nomodel and --train-*, and without
+--runs, the tool runs DEFAULT_RUNS. The other flags are ops/profile_sweep.py
+(scripts/bench_sweep.py, bench_sweep_rgbd.py), ops/profile_int8.py
+(profile_int8_stages.py, probe_int8_variants.py) and ops/profile_train.py
+(profile_nomodel.py, profile_train_stages.py, profile_train_step.py): their
+docstrings state their JSON lines.
 
 Set-up, bench.py's (bench.py:29-68): YOLOv8n (YoloConfig's defaults:
 width 0.25, depth 1/3, 13 classes) in bf16, conf_thresh 0, nms_pre_topk 32
@@ -46,10 +58,11 @@ For each run:
      hold a request: past ~1,000 queued launches the host waits for room
      in the card's launch queue); "idle_share", 1 - card_ms / ms: the
      card's idle share in a stream of such launches (0 where card_ms >=
-     ms). The host's enqueue time includes its waits for room in the
-     launch queue where the card is the slower. Each request runs
-     once under torch.cuda.set_sync_debug_mode("error"): no stage waits for
-     the card;
+     ms); Clock.busy_ms reads the card's time where a graph cannot hold a
+     launch (the train profilers). The host's enqueue time includes its
+     waits for room in the launch queue where the card is the slower.
+     Each request runs once under torch.cuda.set_sync_debug_mode("error"):
+     no stage waits for the card;
   4. FLOPs: each stage's FLOPs per frame from the port's own modules and
      shapes (convolution and matrix-product MACs x 2, counted as
      torch.utils.flop_counter counts them, by a dispatch mode over meta
@@ -118,6 +131,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -164,24 +178,24 @@ ROW_SPECS = {
 
 # ------------------------------------------------------------------ set-up
 
-def build_pipeline(row: str, img_size: int, det_size: int, device, calib=None):
+def build_pipeline(row: str, img_size: int, det_size: int, device, calib=None,
+                   nms_pre_topk: int | None = None):
     """The row's PosePipeline with seeded weights, folded / quantized as the
-    row says (calib: (frames, K) numpy, the int8 calibration batch).
-    Returns (pipeline, name: what ran)."""
-    from ..convert import init_posenet_weights, init_yolo_weights
+    row says (calib: (frames, K) numpy, the int8 calibration batch;
+    nms_pre_topk: in place of the row's). Returns (pipeline, name: what
+    ran)."""
     from ..infer.pipeline import PipelineConfig, PosePipeline
     from ..models.posenet import PoseNetConfig
     from ..models.yolo.model import YoloConfig
 
     spec = ROW_SPECS[row]
     pose_cfg = PoseNetConfig(variant=spec.variant, img_size=img_size)
+    yolo_state, pose_state = _seeded_weights(pose_cfg, SEED + 2 + ROWS.index(row))
     cfg = PipelineConfig(variant=spec.variant, img_size=img_size, det_size=det_size,
                          conf_thresh=0.0, compute_dtype=torch.bfloat16,
                          max_objects=spec.max_objects,
-                         nms_pre_topk=32 if spec.variant == "rgbd" else 64)
-    pipe = PosePipeline(cfg, YoloConfig(dtype=torch.bfloat16),
-                        init_yolo_weights(YoloConfig(), SEED + 1),
-                        init_posenet_weights(pose_cfg, SEED + 2 + ROWS.index(row)), pose_cfg,
+                         nms_pre_topk=nms_pre_topk or (32 if spec.variant == "rgbd" else 64))
+    pipe = PosePipeline(cfg, YoloConfig(dtype=torch.bfloat16), yolo_state, pose_state, pose_cfg,
                         device=device)
     if not spec.fold:
         return pipe, f"{row}_f32_towers"
@@ -197,10 +211,30 @@ def build_pipeline(row: str, img_size: int, det_size: int, device, calib=None):
     return pipe, "_".join([row.removesuffix("_folded"), "folded_bf16", *tags])
 
 
-def ring_size(batch: int, hw) -> int:
-    """Batches in the ring: the uint8 frames of all of them exceed 2x L2."""
-    per = batch * hw[0] * hw[1] * 3
-    return int(min(16, max(2, math.ceil(2 * L2_BYTES / per))))
+@functools.lru_cache(maxsize=2)
+def _seeded_weights(pose_cfg, pose_seed: int) -> tuple:
+    """The detector's (seed SEED + 1) and the pose net's seeded state_dicts,
+    made once for the arms of a sweep (a pipeline copies them)."""
+    from ..convert import init_posenet_weights, init_yolo_weights
+    from ..models.yolo.model import YoloConfig
+
+    return init_yolo_weights(YoloConfig(), SEED + 1), init_posenet_weights(pose_cfg, pose_seed)
+
+
+def ring_size(batch_bytes: int) -> int:
+    """Batches in a ring whose inputs of batch_bytes each exceed 2x L2 (2
+    to 16)."""
+    return int(min(16, max(2, math.ceil(2 * L2_BYTES / batch_bytes))))
+
+
+def launches_of(fn) -> tuple:
+    """(fn(), the kernel launches it made: {launch-count key: n})."""
+    from .. import _build
+
+    before = dict(_build.launch_counts)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()
+                 if v != before.get(k, 0)}
 
 
 def make_ring(pipe, batch: int, hw, n: int, rng) -> list:
@@ -419,6 +453,18 @@ def stage_flops(pipe, frame_hw) -> dict:
 
 # ----------------------------------------------------------------- timing
 
+def union_ns(spans) -> int:
+    """The length of the union of (start, end) intervals sorted by start:
+    the time in which at least one of them runs."""
+    total, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total
+
+
 class Clock:
     """Times a launch fn(i) (i: the ring index) on the card by CUDA events,
     or on the CPU by the host clock."""
@@ -489,12 +535,66 @@ class Clock:
             del graph
         return statistics.median(times)
 
-    def reading(self, fn, n_ring: int) -> dict:
+    def busy_ms(self, fn, n_ring: int) -> float | None:
+        """The card's busy time for one launch, for launches that a CUDA
+        graph cannot hold (random draws from a generator of their own, a
+        train step's optimizer): a window of launches under torch.profiler,
+        the union of the intervals of the device operations (kernels,
+        copies, sets; user ranges left out) that start inside the window's
+        range, over the window's count. The session first runs one launch,
+        waits for the card and pauses 20 ms: in a process that has profiled
+        before, a session's first device operations can go unrecorded (a
+        window of three 0.04 ms launches read none, one of 1 ms launches
+        half). A window with no device operation recorded is profiled
+        again, up to three times. None on the CPU or where none is."""
+        if not self.cuda:
+            return None
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn(0)
+                self.sync()
+                time.sleep(0.02)
+                with record_function("busy_window"):
+                    for k in range(self.window):
+                        fn(k % n_ring)
+                    self.sync()
+            events = _events(prof)
+            t0 = min(start for name, is_cuda, start, _, _ in events
+                     if name == "busy_window" and not is_cuda)
+            spans = sorted((start, start + dur) for _, is_cuda, start, dur, user in events
+                           if is_cuda and not user and start >= t0)
+            if spans:
+                break
+        return union_ns(spans) / 1e6 / self.window if spans else None
+
+    def reading(self, fn, n_ring: int, card: str = "graph", before=None) -> dict:
+        """host_enqueue_ms, ms (the window) and card_ms (card "graph":
+        card_ms, "busy": busy_ms) of fn, and the card's idle share;
+        before(), where given, runs ahead of each of the three."""
+        before = before or (lambda: None)
+        before()
         host = self.host_ms(fn, n_ring)
+        before()
         ms = self.window_ms(fn, n_ring)
-        card = self.card_ms(fn, n_ring)
-        return {"ms": ms, "host_enqueue_ms": host, "card_ms": card,
-                "idle_share": None if card is None else max(0.0, 1.0 - card / ms)}
+        before()
+        card_ms = (self.card_ms if card == "graph" else self.busy_ms)(fn, n_ring)
+        return {"ms": ms, "host_enqueue_ms": host, "card_ms": card_ms,
+                "idle_share": None if card_ms is None else max(0.0, 1.0 - card_ms / ms)}
+
+
+def setting(args) -> dict:
+    """What every profiler line states of its run: the device, its clock,
+    cuDNN's and matmul's TF32 (f32 convolutions and matrix products on the
+    card take TF32 where it is on), the frame and crop sizes, the window."""
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    return {"device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+            "clock": "cuda_events" if cuda else "host",
+            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                     "matmul": torch.backends.cuda.matmul.allow_tf32},
+            "frame_hw": list(args.frame_hw), "img_size": args.img_size, "window": args.window}
 
 
 def _with_flops(reading: dict, flops_per_frame: int, batch: int, cuda: bool) -> dict:
@@ -511,14 +611,16 @@ def _outputs_equal(a, b) -> bool:
 
 
 def _events(prof):
-    """(name, device is CUDA, start ns, duration ns) of each kineto event."""
+    """(name, device is CUDA, start ns, duration ns, is a user range) of
+    each kineto event."""
     from torch.autograd import DeviceType
 
     out = []
     for e in prof.profiler.kineto_results.events():
         start = e.start_ns() if hasattr(e, "start_ns") else e.start_us() * 1000
         dur = e.duration_ns() if hasattr(e, "duration_ns") else e.duration_us() * 1000
-        out.append((e.name(), e.device_type() == DeviceType.CUDA, start, dur))
+        user = e.is_user_annotation() if hasattr(e, "is_user_annotation") else False
+        out.append((e.name(), e.device_type() == DeviceType.CUDA, start, dur, user))
     return out
 
 
@@ -545,10 +647,10 @@ def traced_request(pipe, steps, base: dict, clock: Clock, path: str | None, top:
         prof.export_chrome_trace(path)
     if clock.cuda:
         events = _events(prof)
-        ranges = {name[6:]: (start, start + dur) for name, is_cuda, start, dur in events
+        ranges = {name[6:]: (start, start + dur) for name, is_cuda, start, dur, _ in events
                   if name.startswith("stage:") and not is_cuda}
         per = {stage: {} for stage in ranges}
-        for name, is_cuda, start, dur in events:
+        for name, is_cuda, start, dur, _ in events:
             if not is_cuda or name.startswith("stage:"):  # the ranges' device copies
                 continue
             for stage, (a, b) in ranges.items():
@@ -580,14 +682,13 @@ def traced_request(pipe, steps, base: dict, clock: Clock, path: str | None, top:
 
 def profile_run(row: str, batch: int, args, rng) -> dict:
     """Set up, split and trace one run; returns its JSON line's dict."""
-    from .. import _build
     from ..data.seeded_tree import LINEMOD_K
 
     dev = torch.device(args.device)
     hw = tuple(args.frame_hw)
     clock = Clock(dev, args.window, args.reps)
     # the CPU has no card's L2 to miss: two batches keep its inputs distinct
-    n_ring = ring_size(batch, hw) if clock.cuda else 2
+    n_ring = ring_size(batch * hw[0] * hw[1] * 3) if clock.cuda else 2
     frames0 = rng.integers(0, 256, (batch, *hw, 3), dtype=np.uint8)
 
     with torch.inference_mode():
@@ -639,23 +740,15 @@ def profile_run(row: str, batch: int, args, rng) -> dict:
         summed_card = (sum(stages[k]["card_ms"] for k in SUMMED if k in stages)
                        if clock.cuda else None)
 
-        before = dict(_build.launch_counts)
-        call(0)
-        clock.sync()
-        launches = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()
-                    if v != before.get(k, 0)}
+        _, launches = launches_of(lambda: call(0))
         path = None
         if args.trace_dir:
             os.makedirs(args.trace_dir, exist_ok=True)
             path = os.path.join(args.trace_dir, f"{row}_b{batch}.json")
         top, hand = traced_request(pipe, steps, ring[0], clock, path)
     return {
-        "row": row, "name": name, "batch": batch, "pose_batch": pose_batch,
-        "device": torch.cuda.get_device_name(dev) if clock.cuda else "cpu",
-        "clock": "cuda_events" if clock.cuda else "host",
-        "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
-                 "matmul": torch.backends.cuda.matmul.allow_tf32},
-        "frame_hw": list(hw), "img_size": args.img_size, "ring": n_ring, "window": args.window,
+        "row": row, "name": name, "batch": batch, "pose_batch": pose_batch, **setting(args),
+        "ring": n_ring,
         "stages": stages, "sum_isolated_ms": summed, "prefixes": prefixes,
         "request": _with_flops(request, flops["request"], batch, clock.cuda),
         "overhead_ms": request["ms"] - summed, "sum_isolated_card_ms": summed_card,
@@ -747,13 +840,25 @@ def parse_runs(runs) -> list:
     return out
 
 
+def parse_variant_batch(text: str, flag: str) -> tuple[str, int]:
+    from ..models.posenet import VARIANTS
+
+    variant, _, batch = text.partition("@")
+    if variant not in VARIANTS or not batch.isdigit():
+        raise SystemExit(f"profile_pipeline: bad {flag} {text!r}: VARIANT@BATCH with VARIANT "
+                         f"in {VARIANTS}")
+    return variant, int(batch)
+
+
 def main(argv=None) -> int:
     from .. import DEFAULT_DEVICE
+    from . import profile_int8, profile_sweep, profile_train
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--runs", nargs="+", default=list(DEFAULT_RUNS),
-                    help="ROW@BATCH runs, ROW in " + ", ".join(ROWS))
+    ap.add_argument("--runs", nargs="+", default=None,
+                    help="ROW@BATCH runs, ROW in " + ", ".join(ROWS) + "; by default "
+                    + " ".join(DEFAULT_RUNS) + " when no other run is asked for")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help=f"the card (default {DEFAULT_DEVICE}); cpu only when asked")
     ap.add_argument("--frame-hw", nargs=2, type=int, default=[480, 640], metavar=("H", "W"))
@@ -765,17 +870,53 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--eval-batch", action="store_true",
                     help="also split one batch of cli/eval_e2e.py")
+    ap.add_argument("--sweep", choices=sorted(profile_sweep.SWEEP_ROWS),
+                    help="scripts/bench_sweep.py (rgb) or bench_sweep_rgbd.py (rgbd)")
+    ap.add_argument("--sweep-batches", nargs="+", type=int, default=None,
+                    help="rgb: one batch (default 128); rgbd: default 128 192 256")
+    ap.add_argument("--int8-split", nargs="+", type=int, metavar="BATCH",
+                    help="scripts/profile_int8_stages.py at each batch (e.g. 128 32)")
+    ap.add_argument("--int8-variants", nargs="+", type=int, metavar="BATCH",
+                    help="scripts/probe_int8_variants.py, variants A-E, at each batch")
+    ap.add_argument("--train-split", metavar="VARIANT@BATCH",
+                    help="scripts/profile_train_stages.py (e.g. rgbd@32)")
+    ap.add_argument("--train-step", metavar="VARIANT@BATCH",
+                    help="scripts/profile_train_step.py, f32 against bf16 (e.g. rgbd@32)")
+    ap.add_argument("--nomodel", type=int, metavar="BATCH",
+                    help="scripts/profile_nomodel.py: the device preprocess's prefixes")
+    ap.add_argument("--train-frames", type=int, default=512,
+                    help="resident frames of the train profilers")
     args = ap.parse_args(argv)
-    runs = parse_runs(args.runs)
+    others = (args.sweep, args.int8_split, args.int8_variants, args.train_split,
+              args.train_step, args.nomodel)
+    runs = parse_runs(args.runs if args.runs is not None else
+                      () if any(x is not None for x in others) else DEFAULT_RUNS)
+    train_split = args.train_split and parse_variant_batch(args.train_split, "--train-split")
+    train_step = args.train_step and parse_variant_batch(args.train_step, "--train-step")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("profile_pipeline: no CUDA card; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 2
     rng = np.random.default_rng(SEED)
-    for row, batch in runs:
-        print(json.dumps(profile_run(row, batch, args, rng)), flush=True)
+    lines = [lambda row=row, batch=batch: profile_run(row, batch, args, rng)
+             for row, batch in runs]
     if args.eval_batch:
-        print(json.dumps({"eval_batch": eval_batch(args, rng)}), flush=True)
+        lines.append(lambda: {"eval_batch": eval_batch(args, rng)})
+    if args.nomodel is not None:
+        lines.append(lambda: profile_train.nomodel(args.nomodel, args))
+    if train_split:
+        lines.append(lambda: profile_train.train_split(*train_split, args))
+    if train_step:
+        lines.append(lambda: profile_train.train_step(*train_step, args))
+    for b in args.int8_split or ():
+        lines.append(lambda b=b: profile_int8.int8_split(b, args))
+    for b in args.int8_variants or ():
+        lines.append(lambda b=b: profile_int8.int8_variants(b, args))
+    if args.sweep:
+        batches = args.sweep_batches or profile_sweep.SWEEP_BATCHES[args.sweep]
+        lines.append(lambda: profile_sweep.sweep(args.sweep, batches, args, rng))
+    for line in lines:
+        print(json.dumps(line()), flush=True)
     return 0
 
 

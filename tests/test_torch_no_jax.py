@@ -3,7 +3,7 @@ torchvision, ultralytics, cv2, PyYAML, PIL or the JAX package: every
 submodule imports in a fresh interpreter in which those names are blocked
 (the card's machine has none of them installed), the detector-training
 modules, the converters, the generator, utils, every CLI (the evidence tools
-too) and the request trace among them;
+too) and the request trace with its train and int8 profilers among them;
 the LineMOD loader, the parser, the detector trainer and the synthetic
 generator's CLI also run there."""
 
@@ -32,7 +32,8 @@ WORKFLOW_MODULES = tuple(f"pose6d_tpu_torch.{m}" for m in (
     "ops.profile_pipeline", "data.seeded_tree",
     "cli.parity_md", "cli.parity_symmetric", "cli.probe_rgbd_gradients", "cli.parity_diagnosis",
     "cli.selection_study", "cli.serving_md", "cli.multiobj_md", "cli.parity_summarize",
-    "cli.parity_report"))
+    "cli.parity_report", "ops.profile_train", "ops.profile_int8",
+    "ops.profile_sweep"))
 
 _PROBE = """
 import importlib, importlib.abc, sys

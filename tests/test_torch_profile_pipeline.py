@@ -10,8 +10,12 @@ a ResNet50 tower at 224 (C=3 and C=1) and of YOLOv8n at 640x480 are held
 within FLOP_RTOL of XLA's cost analysis of the JAX modules, lowered on the
 CPU and never run (XLA counts the convolutions' multiply-adds x 2 without
 the padded taps, and the elementwise ops besides: the two counts differ by
-a few per cent, not by a factor). Without --device cpu, on a machine with
-no card, the tool exits 2."""
+a few per cent, not by a factor). The sweeps (--sweep rgb, --sweep rgbd,
+the counterparts of scripts/bench_sweep.py and bench_sweep_rgbd.py) run at
+batch 2 on 96x64 frames with PoseNet at img 32, each arm printing its
+frames/s and reading; the detector's weights cast to bf16 once (the
+bf16_params arm) give a request's outputs bit for bit. Without --device
+cpu, on a machine with no card, the tool exits 2."""
 
 import contextlib
 import io
@@ -171,3 +175,68 @@ def test_refuses_without_a_card():
     r = subprocess.run([sys.executable, "-m", "pose6d_tpu_torch.ops.profile_pipeline",
                         "--runs", "rgb@2"], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert r.returncode == 2 and r.stdout == "" and "--device cpu" in r.stderr
+
+
+SWEEP_ARGS = ["--device", "cpu", "--frame-hw", "64", "96", "--img-size", "32", "--window", "1",
+              "--reps", "1", "--sweep-batches", "2"]
+SWEEP_KEYS = {"rgb": ("baseline_topk64", "topk32", "topk16", "bf16_params"),
+              "rgbd": ("b2", "b2_bf16params", "b2_topk32")}
+ARM_KEYS = {"name", "batch", "pose_batch", "nms_pre_topk", "bf16_params_cast", "fps", "ms",
+            "host_enqueue_ms", "card_ms", "idle_share", "kernel_launches"}
+DETECTOR_CASTS = 57 + 6 + 6  # the ConvBNs' weights, the head output convs' weights and biases
+
+
+@pytest.mark.parametrize("kind", ["rgb", "rgbd"])
+def test_sweep_line(kind):
+    """--sweep rgb / rgbd (scripts/bench_sweep.py, bench_sweep_rgbd.py) at
+    batch 2: the JAX script's keys in frames/s, each arm's reading, the
+    bf16_params arm's outputs bit-equal to the pipeline's without the cast
+    (the sweep raises otherwise)."""
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert pp.main(SWEEP_ARGS + ["--sweep", kind]) == 0
+    (line,) = [json.loads(x) for x in out.getvalue().splitlines()]
+    keys = SWEEP_KEYS[kind]
+    assert line["tool"] == f"sweep_{kind}" and set(line["arms"]) == set(keys)
+    assert line["bf16_params_equal"] is True and line["best_batch"] == 2
+    for k in keys:
+        arm = line["arms"][k]
+        assert set(arm) == ARM_KEYS and line[k] == arm["fps"]
+        assert arm["fps"] == pytest.approx(2 / (arm["ms"] / 1e3)) and arm["card_ms"] is None
+        assert arm["name"] == ("rgb_f32_towers" if kind == "rgb" else "rgbd_folded_bf16")
+        assert arm["bf16_params_cast"] == (DETECTOR_CASTS if "bf16" in k else 0)
+        assert arm["nms_pre_topk"] == {"topk32": 32, "topk16": 16}.get(
+            k, 64 if kind == "rgb" else 32)
+
+
+def test_precast_detector_keeps_the_outputs():
+    """bf16_params casts every weight the bf16 detector casts at use, once:
+    then none is f32, and a request's outputs equal those of the pipeline
+    without the cast, bit for bit."""
+    import numpy as np
+
+    from pose6d_tpu_torch.models.yolo.modules import ConvBN, OutConv
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+    from pose6d_tpu_torch.ops.profile_sweep import precast_detector_bf16
+
+    base, _ = pp.build_pipeline("rgbd_folded", 32, 640, "cpu")
+    cast, _ = pp.build_pipeline("rgbd_folded", 32, 640, "cpu")
+    assert precast_detector_bf16(cast) == DETECTOR_CASTS
+    convs = [m.conv if isinstance(m, ConvBN) else m for m in cast.yolo.modules()
+             if isinstance(m, (ConvBN, OutConv))]
+    assert all(p.dtype == torch.bfloat16 for c in convs for p in c.parameters())
+    ring = pp.make_ring(base, 2, (64, 96), 1, np.random.default_rng(0))[0]
+    assert pp._outputs_equal(base(ring["frames"], ring["K"], ring["depth"]),
+                             cast(ring["frames"], ring["K"], ring["depth"]))
+
+
+def test_sweep_refuses_without_a_card(capsys):
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tool runs on it")
+    assert pp.main(["--sweep", "rgbd"]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "--device cpu" in out.err
