@@ -179,9 +179,11 @@ Phases, each printed on its own line with its seconds:
      (2 per step) and addmin (1 per val batch) launches counted from 0;
  16. trace: the request trace, python -m pose6d_tpu_torch.ops.profile_pipeline,
      in this process (phase_trace, generator SEED + 19): the JAX
-     benchmark's rows (rgb, rgbd folded with the stem and layer1 kernels,
-     rgbd_geometric folded with the stem and stage 1-4 kernels,
-     rgb_maxobj4 folded, rgbd int8) at batch 8 and rgbd folded at 128,
+     benchmark's rows (rgb and rgbd, the float pipeline with bf16 towers;
+     rgb_f32, the rgb row with f32 towers; rgbd folded with the stem and
+     layer1 kernels, rgbd_geometric folded with the stem and stage 1-4
+     kernels, rgb_maxobj4 folded, rgbd int8) at batch 8 and rgbd and rgbd
+     folded at 128,
      each split into its stages alone, the prefixes of one request and the
      host's enqueue against the card's time, with a torch.profiler trace of
      one request; then one eval_e2e batch split into its PNG decodes,
@@ -223,14 +225,26 @@ Phases, each printed on its own line with its seconds:
      SWEEP_BATCHES, 192 and 256 (phase 16 reads 128; bf16_params equal bit
      for bit to no cast, the stem and layer1 launches of each request).
      Every time positive and every card time read;
+ 20. bf16 float towers (run after 19 and before the kernels line, 18):
+     bench.py's rgb and rgbd rows (phase_bf16_float, generator SEED + 21):
+     the float pipeline at full width with no pose_cfg at compute bf16, so
+     its towers run in bf16 under autocast (a hook on each tower's last
+     conv sees bf16; the same weights with an explicit f32 PoseNetConfig
+     f32), no kernel launched; boxes equal to the f32-tower pipeline's and
+     poses within POSE_ATOL of them; the same weights folded through the
+     stem and stage 1-4 (rgb) or stem and layer1 (rgbd) kernels, their
+     launches counted, poses within BF16_PAIR_ATOL of the bf16 float
+     pipeline's; ADD / ADD-S of the bf16 poses through the addmin kernel;
+     the bf16 request's card ms and host enqueue ms;
  18. kernels: one JSON line with every kernel's numbers; launches are the
      sums over the slice, add, train, CLI, mesh, learning, trace,
-     evidence and profiler runs, on the row of the kernel and the batch
-     they ran at (the stem and layer1 at 32 in phases 6 and 16, at 128 in
-     phases 16 and 19, at 192 and 256 in phase 19, at 8 elsewhere; addmin
-     at 8 in phases 9, 13, 16 and 17 and at 32 in phases 9, 10, 11, 13, 14,
-     15 and 17; the gather at 32 in phases 10, 11, 13, 14, 15, 17 and 19;
-     stages 3-4 at 8 in phases 13, 16, 17 and 19); a launch at a batch
+     evidence, profiler and bf16 float runs, on the row of the kernel and
+     the batch they ran at (the stem and layer1 at 32 in phases 6 and 16,
+     at 128 in phases 16 and 19, at 192 and 256 in phase 19, at 8
+     elsewhere; addmin at 8 in phases 9, 13, 16, 17 and 20 and at 32 in
+     phases 9, 10, 11, 13, 14, 15 and 17; the gather at 32 in phases 10,
+     11, 13, 14, 15, 17 and 19; stages 3-4 at 8 in phases 13, 16, 17, 19
+     and 20); a launch at a batch
      with no row fails the run. The int8 convolution is
      torch._int_mm, a library call as the JAX package's is XLA's, and has
      no row.
@@ -294,6 +308,8 @@ SWEEP_BATCHES = (192, 256)  # phase 19's rgbd sweep: bench_sweep_rgbd.py's above
 PROFILER_WINDOW = 3    # phase 19: launches (train steps) in a timed window
 PROFILER_FRAMES = 128  # phase 19: resident frames of the train profilers (the tool's 512)
 PROFILER_BF16_REL = 0.05  # phase 19: bf16 tower through the kernels vs cuDNN, rel-L2
+# phase 20: two bf16 computations of the towers, each within POSE_ATOL of the f32 one
+BF16_PAIR_ATOL = 2 * POSE_ATOL
 
 
 class CheckFailed(RuntimeError):
@@ -2818,6 +2834,8 @@ def phase_learning(smi: str, device: str = "cuda"):
 # csrc kernels its posenet range must show in the trace
 TRACE_EXPECT = {
     "rgb": ({}, ()),
+    "rgb_f32": ({}, ()),
+    "rgbd": ({}, ()),
     "rgbd_folded": ({"fused_stem_c3": 1, "fused_stem_c1": 1, "fused_layer1": 2},
                     ("stem_tc_kernel", "wgmma_gemm_kernel")),
     "rgbd_geometric_folded": ({"fused_stem_c3": 1,
@@ -2831,7 +2849,7 @@ TRACE_EXPECT = {
 
 def phase_trace(smi: str):
     """The request trace (ops/profile_pipeline.py) in this process: every
-    row at BATCH and rgbd folded at TRACE_BIG_BATCH (windows of
+    row at BATCH and rgbd and rgbd folded at TRACE_BIG_BATCH (windows of
     TRACE_WINDOW, readings of TRACE_REPS, generator SEED + 19), then the
     eval_e2e batch. Checks each run's full prefix equal to __call__ bit for
     bit on the card, its request free of waits for the card, the fused
@@ -2854,7 +2872,8 @@ def phase_trace(smi: str):
     counts, lines = collections.Counter(), []
     runs = pp.parse_runs(pp.DEFAULT_RUNS)
     check(sorted({row for row, _ in runs}) == sorted(TRACE_EXPECT)
-          and (("rgbd_folded", TRACE_BIG_BATCH) in runs), f"the tool's runs {runs}")
+          and {("rgbd", TRACE_BIG_BATCH), ("rgbd_folded", TRACE_BIG_BATCH)} <= set(runs),
+          f"the tool's runs {runs}")
     for row, batch in runs:
         t0 = time.perf_counter()
         _build.launch_counts.clear()
@@ -2999,6 +3018,137 @@ def phase_profilers(smi: str):
     with open(os.path.join(os.path.dirname(_build.LIB_PATH), "profilers.jsonl"), "w") as f:
         f.writelines(json.dumps(x) + "\n" for x in lines.values())
     return counts, lines
+
+
+# phase 20: bench.py's rgb and rgbd rows, the float pipeline with bf16 towers, and the
+# kernels the same weights go through when folded (fold_backbones' arguments), with
+# one request's launches of them
+BF16_FLOAT_ROWS = {
+    "rgb": ({"pallas_stem": True, "pallas_stages": (1, 2, 3, 4)},
+            {"fused_stem_c3": 1, **{f"fused_stage_s{k}": 1 for k in (1, 2, 3, 4)}}),
+    "rgbd": ({"pallas_stem": True, "pallas_layer1": True},
+             {"fused_stem_c3": 1, "fused_stem_c1": 1, "fused_layer1": 2}),
+}
+
+
+def tower_conv_dtypes(pipe) -> tuple:
+    """(seen, hooks): forward hooks on each tower's last conv of `pipe`
+    that append its output dtype to seen; remove the hooks after the
+    request."""
+    seen, hooks = [], []
+    for name in pipe.posenet.towers:
+        conv = getattr(pipe.posenet, name).layer4_2.conv3
+        hooks.append(conv.register_forward_hook(lambda m, a, out: seen.append(out.dtype)))
+    return seen, hooks
+
+
+def phase_bf16_float(smi: str):
+    """bench.py's rgb and rgbd rows on the card (generator SEED + 21): the
+    float pipeline at full width (a bf16 YOLOv8n of the other phases'
+    seeded weights on 640x480 frames, ResNet50 towers at 224, conf_thresh 0,
+    nms_pre_topk 32 for rgbd and 64 for rgb, compute bf16, BATCH frames)
+    built without pose_cfg, so its towers run in bf16 (PoseNetConfig's dtype
+    from compute_dtype); the same weights with an explicit f32
+    PoseNetConfig, and folded through the stem and stage (rgb) or layer1
+    (rgbd) kernels. Checks the towers' conv outputs bf16 and f32, no
+    kernel launched by either float pipeline, the folded one's launches,
+    boxes equal across the three, the bf16 poses within POSE_ATOL of the
+    f32 ones and the folded poses within BF16_PAIR_ATOL of the bf16 float
+    ones (both printed beside the observed distances), and ADD / ADD-S of
+    the bf16 poses through the addmin kernel (phase_add); prints the bf16
+    request's card ms (a CUDA-graph replay) and host enqueue ms (the
+    request trace's Clock). Returns (launches by (kernel, batch), {row:
+    its readings})."""
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.convert import init_posenet_weights, init_yolo_weights
+    from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
+    from pose6d_tpu_torch.models.posenet import PoseNetConfig
+    from pose6d_tpu_torch.models.yolo.model import YoloConfig
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    rng = np.random.default_rng(SEED + 21)
+    dev = torch.device("cuda")
+    K = torch.from_numpy(LINEMOD_K).to(dev)
+    yolo_state = init_yolo_weights(YoloConfig(), SEED + 1)
+    counts, rows = collections.Counter(), {}
+    for i, (variant, (fold, expected)) in enumerate(BF16_FLOAT_ROWS.items()):
+        t0 = time.perf_counter()
+        cfg = PipelineConfig(variant=variant, img_size=224, conf_thresh=0.0,
+                             compute_dtype=torch.bfloat16,
+                             nms_pre_topk=32 if variant == "rgbd" else 64)
+        pose_state = init_posenet_weights(PoseNetConfig(variant=variant), SEED + 30 + i)
+
+        def make(pose_cfg=None):
+            return PosePipeline(cfg, YoloConfig(dtype=torch.bfloat16), yolo_state, pose_state,
+                                pose_cfg, device=dev)
+
+        pipes = {"bf16": make(), "f32": make(PoseNetConfig(variant=variant))}
+        pipes["folded"] = make().fold_backbones(**fold)
+        check(pipes["bf16"].pose_cfg.dtype == torch.bfloat16
+              and pipes["f32"].pose_cfg.dtype == torch.float32,
+              f"{variant}: the float pipelines' tower dtypes {pipes['bf16'].pose_cfg.dtype}, "
+              f"{pipes['f32'].pose_cfg.dtype}")
+        frames = torch.from_numpy(rng.integers(0, 256, (BATCH, FRAME_H, FRAME_W, 3),
+                                               dtype=np.uint8)).to(dev)
+        depth = (torch.from_numpy(rng.uniform(0.2, 1.5, (BATCH, FRAME_H, FRAME_W))
+                                  .astype(np.float32)).to(dev) if variant == "rgbd" else None)
+        outs, dtypes, launched = {}, {}, {}
+        with torch.inference_mode():
+            for key, pipe in pipes.items():
+                pipe(frames, K, depth)  # warm-up (cuDNN set-up), not counted
+                seen, hooks = tower_conv_dtypes(pipe)
+                sync(dev)
+                _build.launch_counts.clear()
+                outs[key] = pipe(frames, K, depth)
+                sync(dev)
+                launched[key] = dict(_build.launch_counts)
+                for h in hooks:
+                    h.remove()
+                dtypes[key] = seen
+        towers = len(pipes["bf16"].posenet.towers)
+        check(dtypes["bf16"] == [torch.bfloat16] * towers
+              and dtypes["f32"] == [torch.float32] * towers and dtypes["folded"] == [],
+              f"{variant}: tower conv outputs {dtypes}")
+        check(launched["bf16"] == {} and launched["f32"] == {},
+              f"{variant}: a float pipeline launched {launched}")
+        check(launched["folded"] == expected,
+              f"{variant}: the folded pipeline launched {launched['folded']}, "
+              f"expected {expected}")
+        counts.update({(k, BATCH): v for k, v in launched["folded"].items()})
+        for key, out in outs.items():
+            for k in ("rotation", "translation"):
+                check(tuple(out[k].shape) == (BATCH, 4 if k == "rotation" else 3)
+                      and bool(torch.isfinite(out[k]).all()), f"{variant} {key}: {k}")
+            check(torch.equal(out["bbox_xywh"], outs["bf16"]["bbox_xywh"]),
+                  f"{variant}: the {key} pipeline's boxes differ from the bf16 one's")
+
+        def dist(a, b):
+            return max((outs[a][k] - outs[b][k]).abs().max().item()
+                       for k in ("rotation", "translation"))
+
+        d_f32, d_folded = dist("bf16", "f32"), dist("folded", "bf16")
+        check(d_f32 <= POSE_ATOL, f"{variant}: bf16 vs f32 towers' poses {d_f32:.3g} > "
+                                  f"{POSE_ATOL}")
+        check(d_folded <= BF16_PAIR_ATOL, f"{variant}: folded kernels vs bf16 float poses "
+                                          f"{d_folded:.3g} > {BF16_PAIR_ATOL}")
+        with torch.inference_mode():
+            n, batch = phase_add(outs["bf16"], rng)
+        counts[("pairwise_min_dist", batch)] += n
+        with torch.inference_mode():
+            ring = [(frames, K, depth), (frames.flip(0), K, None if depth is None
+                                         else depth.flip(0))]
+            bf16 = pipes["bf16"]
+            r = pp.Clock(dev, TRACE_WINDOW, TRACE_REPS).reading(lambda j: bf16(*ring[j]), 2)
+        rows[variant] = {"pose_vs_f32": d_f32, "pose_folded_vs_bf16": d_folded, **r}
+        log(f"  {variant} bf16 float towers at {BATCH}: poses vs f32 towers {d_f32:.3g} "
+            f"(bound {POSE_ATOL}), folded kernels {launched['folded']} vs bf16 float "
+            f"{d_folded:.3g} (bound {BF16_PAIR_ATOL}), boxes equal, addmin {n} at {batch} "
+            f"({time.perf_counter() - t0:.1f}s)")
+        log(f"  {variant} bf16 float request at {BATCH}: card {r['card_ms']:.3f} ms, host "
+            f"enqueue {r['host_enqueue_ms']:.3f} ms, back to back {r['ms']:.3f} ms, idle "
+            f"{r['idle_share']:.3f} on {smi}")
+        del pipes, outs
+    return counts, rows
 
 
 # phase 17: the evidence tools (cli/parity_symmetric.py, probe_rgbd_gradients.py,
@@ -3440,8 +3590,8 @@ def main() -> int:
     trace_counts, trace, ev = phase_trace(smi)
     for (k, batch), v in sorted(trace_counts.items()):
         count({k: v}, batch)
-    log(f"[phase 16 trace] ops/profile_pipeline.py on every row at {BATCH} and rgbd folded at "
-        f"{TRACE_BIG_BATCH} on {smi}: full prefix == __call__, no wait for the card, the "
+    log(f"[phase 16 trace] ops/profile_pipeline.py on every row at {BATCH} and rgbd and rgbd "
+        f"folded at {TRACE_BIG_BATCH} on {smi}: full prefix == __call__, no wait for the card, the "
         f"kernels in the trace; request ms " + ", ".join(
             f"{x['name']}@{x['batch']} {x['request']['ms']:.3f}" for x in trace)
         + f"; eval_e2e batch {ev['total_ms']:.1f} ms; launches "
@@ -3488,6 +3638,17 @@ def main() -> int:
           f"{prof['int8_split']['tower_bf16_ms']:.3f} / int8 "
           f"{prof['int8_split']['tower_int8_ms']:.3f} ms; launches "
         + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(prof_counts.items()))
+        + f" ({time.perf_counter() - t0:.1f}s)")
+
+    t0 = time.perf_counter()
+    bf16_counts, bf16_rows = phase_bf16_float(smi)
+    for (k, batch), v in sorted(bf16_counts.items()):
+        count({k: v}, batch)
+    log(f"[phase 20 bf16 float towers] bench.py's rgb and rgbd rows at {BATCH} on {smi}: "
+        + ", ".join(f"{v} poses vs f32 {r['pose_vs_f32']:.3g}, folded kernels vs bf16 "
+                    f"{r['pose_folded_vs_bf16']:.3g}, card {r['card_ms']:.3f} ms, host "
+                    f"{r['host_enqueue_ms']:.3f} ms" for v, r in bf16_rows.items())
+        + "; launches " + ", ".join(f"{k}@{b} {v}" for (k, b), v in sorted(bf16_counts.items()))
         + f" ({time.perf_counter() - t0:.1f}s)")
 
     # the b32 addmin row: phase 3's inputs and the eval step's

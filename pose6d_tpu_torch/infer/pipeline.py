@@ -8,10 +8,11 @@ detector's coarsest stride) -> top-1 decode, or top-k + class-aware NMS
 for max_objects > 1 -> boxes mapped back to the frame -> square crop at
 1.2x each box -> crop+resize as two matmuls (optionally on a per-sample
 window) -> ImageNet normalization -> PoseNet over the [B*M] crops (float
-towers, BN-folded serving towers after fold_backbones, whose stem, layer1
-and stages may run as CUDA kernels, or int8 towers and an int8 detector
-after quantize_backbones). Per variant, as in the reference's deployment
-scripts:
+towers in PoseNetConfig.dtype, by default compute_dtype as in the JAX
+pipeline; BN-folded serving towers after fold_backbones, whose stem,
+layer1 and stages may run as CUDA kernels; or int8 towers and an int8
+detector after quantize_backbones). Per variant, as in the reference's
+deployment scripts:
   - rgb, rgbd: with geometric_correction, X/Y re-derived from the
     predicted Z, the box centre and the original intrinsics;
   - rgb_geometric: the network takes the original-frame centre and K;
@@ -30,10 +31,9 @@ crop -> towers on its rows of the frames and the heads split over the
 model group (parallel/heads.py), and all-gathers the outputs, so that every
 rank returns what the unsharded pipeline returns. fold_backbones and
 quantize_backbones compose with shard in either order; under a mesh the
-calibration's abs-max statistics are reduced with MAX over the data group.
-
-Not ported: quantize_backbones' percentile calibration (no caller of
-either package sets it); see ROADMAP.md.
+calibration's abs-max statistics are reduced with MAX over the data group,
+and its percentile statistics are taken over |x| gathered from the data
+group, so that every rank calibrates on the whole batch.
 """
 
 from __future__ import annotations
@@ -70,17 +70,19 @@ class PipelineConfig:
     # greedy-NMS fixpoint iterations: exact for suppression chains up to
     # this depth; None = nms_pre_topk iterations (always exact)
     nms_fixpoint_iters: int | None = 16
-    # poses per frame: the top-M detections by score. M = 1 decodes the
-    # best anchor alone (slot 0 of the general NMS path, which never
-    # suppresses the global best)
+    # poses per frame: the top-M detections by score
     max_objects: int = 1
+    # max_objects = 1 decodes the best anchor alone (slot 0 of the general
+    # NMS path, which never suppresses the global best); False runs the
+    # general NMS with max(8, M) detections there too
+    nms_top1_fast: bool = True
     # crop from a per-sample window of this side instead of the whole frame
     # (must exceed the largest crop side), for frames much larger than the
     # crops, e.g. 1280x720 with LineMOD objects (crops < 300 px) at 320;
     # None = the whole frame
     crop_window: int | None = None
     geometric_correction: bool = True  # rgb, rgbd: re-derive X/Y at deployment
-    # towers, crops and frames
+    # frames, crops and serving towers; the float towers' default dtype
     compute_dtype: torch.dtype = torch.bfloat16
     # rgbd: crop the depth map in compute_dtype (the net sees only the
     # normalized depth); else f32. rgbd_geometric always crops it in f32
@@ -91,7 +93,10 @@ class PosePipeline:
     """Holds both models on `device` and serves __call__(frames, K, depth).
 
     yolo_state / pose_state are the port's state_dicts (convert.py makes
-    them from flax trees or from a seed)."""
+    them from flax trees or from a seed). Without pose_cfg the pose net is
+    PoseNetConfig(variant, img_size, dtype=compute_dtype), as the JAX
+    pipeline builds it: its float towers serve in the compute dtype. A
+    pose_cfg given keeps its own dtype."""
 
     def __init__(self, pipe_cfg: PipelineConfig, yolo_cfg: YoloConfig,
                  yolo_state: dict, pose_state: dict,
@@ -103,7 +108,8 @@ class PosePipeline:
         self.device = torch.device(device)
         self.yolo_cfg = yolo_cfg
         self.pose_cfg = pose_cfg or PoseNetConfig(variant=pipe_cfg.variant,
-                                                  img_size=pipe_cfg.img_size)
+                                                  img_size=pipe_cfg.img_size,
+                                                  dtype=pipe_cfg.compute_dtype)
         self.yolo = self._load(YoloV8(yolo_cfg), yolo_state)
         self.posenet = self._load(PoseNet(self.pose_cfg), pose_state)
         self._folded: dict = {}
@@ -136,16 +142,10 @@ class PosePipeline:
 
         return t[local_rows(t.shape[0], self.mesh)]
 
-    def _reduce_max(self):
-        """The calibration's abs-max reduction under a mesh, else None."""
-        if self.mesh is None:
-            return None
-        import torch.distributed as dist
-
-        from ..parallel.collectives import all_reduce_
-
-        group = self.mesh.data_group
-        return lambda t: all_reduce_(t, group, dist.ReduceOp.MAX)
+    def _data_group(self):
+        """The mesh's data group (the calibration's statistics are taken
+        over it), else None."""
+        return None if self.mesh is None else self.mesh.data_group
 
     def fold_backbones(self, pallas_layer1: bool = False, pallas_stem: bool = False,
                        pallas_stages: tuple = ()):
@@ -176,28 +176,32 @@ class PosePipeline:
 
     @torch.no_grad()
     def quantize_backbones(self, calib_frames, calib_K, calib_depth=None,
+                           percentile: float | None = None,
                            include_detector: bool = False):
         """Enable the int8 serving mode: the float pipeline's crops of
         representative frames (top-1 box, f32; calib_depth [B, H, W] metres,
         or all-zero when None, normalized for every variant) calibrate each
-        tower's static activation scales (abs max), and every ResNet50 tower
-        goes to per-channel int8 (ops/quant.py); with include_detector the detector too, calibrated
-        on the canvas it takes (frames / 255 at native resolution, or the
-        letterbox). calib_K is taken as the JAX pipeline takes it, unused.
-        A tower also folded by fold_backbones runs int8. Under a mesh each
-        rank calibrates on its rows of the frames and the abs maxes are
-        reduced with MAX over the data group: every rank holds the scales of
-        the whole batch. Returns self."""
+        tower's static activation scales (abs max, or the `percentile` of
+        |x|), and every ResNet50 tower goes to per-channel int8
+        (ops/quant.py); with include_detector the detector too (abs max),
+        calibrated on the canvas it takes (frames / 255 at native
+        resolution, or the letterbox). calib_K is taken as the JAX pipeline
+        takes it, unused. A tower also folded by fold_backbones runs int8.
+        Under a mesh each rank calibrates on its rows of the frames, the abs
+        maxes reduced with MAX over the data group and the percentiles taken
+        over the inputs gathered from it: every rank holds the scales of the
+        whole batch. Returns self."""
         frames = self._rows(self._tensor(calib_frames))
         depth = (torch.zeros(frames.shape[:3], device=self.device) if calib_depth is None
                  else self._rows(self._tensor(calib_depth, torch.float32)))
         crops, depth_norm = self._calib_crops(frames, depth)
-        reduce_max = self._reduce_max()
-        q = {name: quantize_resnet_from_variables(getattr(self.posenet, name), [x], reduce_max)
+        group = self._data_group()
+        q = {name: quantize_resnet_from_variables(getattr(self.posenet, name), [x], percentile,
+                                                  group)
              for name, x in self.posenet.tower_inputs(crops, depth_norm).items()}
         if include_detector:
             canvas = self._letterbox(frames.float() / 255.0)[0]
-            q["__yolo__"] = quantize_yolo_from_variables(self.yolo, [canvas], reduce_max)
+            q["__yolo__"] = quantize_yolo_from_variables(self.yolo, [canvas], group)
         return self.load_quantized(q)
 
     def load_quantized(self, quantized: dict):
@@ -253,10 +257,10 @@ class PosePipeline:
 
     def _decode(self, outputs, det_hw) -> dict:
         """The detector's raw maps -> detections [B, D, ...] in canvas
-        pixels: the top-1 decode (D = 1) when max_objects == 1, else NMS
-        with D = max(8, max_objects)."""
+        pixels: the top-1 decode (D = 1) when max_objects == 1 and
+        nms_top1_fast, else NMS with D = max(8, max_objects)."""
         cfg = self.cfg
-        top1 = cfg.max_objects == 1
+        top1 = cfg.max_objects == 1 and cfg.nms_top1_fast
         return decode_topk_nms(outputs, self.yolo_cfg, det_hw,
                                max_det=1 if top1 else max(8, cfg.max_objects),
                                pre_topk=cfg.nms_pre_topk, iou_thresh=cfg.iou_thresh,
@@ -371,8 +375,8 @@ class PosePipeline:
 
     def pose_forward(self, inputs: dict):
         """The pose net over crop_stage's inputs: the serving towers (folded
-        or int8) when the pipeline has them, else the float module.
-        Returns (rotation, translation)."""
+        or int8) when the pipeline has them, else the float module, its
+        towers in pose_cfg.dtype. Returns (rotation, translation)."""
         cfg = self.cfg
         if self._folded or self._quantized:
             return serving_forward(self.posenet, self.pose_cfg, **inputs,

@@ -18,8 +18,10 @@ Attribute names follow the flax scopes (backbone, rot_dense0, rot_norm0,
 transposes; dropouts (rot_drop0, fusion_drop0, ...) hold no state.
 `PoseNet.heads` is everything after the ResNet50 towers, from their f32
 features; the float forward and the folded serving forward
-(posenet_serving.py) share it. `flax_init_` is the flax model's
-from-scratch initialization.
+(posenet_serving.py) share it. The float forward runs the towers in
+PoseNetConfig.dtype (`tower_features`): f32, or bf16 under autocast with
+the parameters and BN statistics kept f32, as flax's ResNet50(dtype=...).
+`flax_init_` is the flax model's from-scratch initialization.
 
 stem_s2d: every ResNet50 tower's stem is the space-to-depth form
 (resnet.ResNet50(stem_s2d=True)); the folded and int8 serving modes take
@@ -63,6 +65,10 @@ DEPTH_GUARD_MAX_M = 2.0
 class PoseNetConfig:
     variant: str = "rgb"  # rgb | rgb_geometric | rgbd | rgbd_geometric
     img_size: int = 224
+    # the ResNet50 towers' compute dtype in the float forward (flax's
+    # ResNet50(dtype=...)); float32 computes them in the parameters' dtype.
+    # Parameters, BN statistics and heads stay in the parameters' dtype
+    dtype: torch.dtype = torch.float32
     # the towers' stem as a 2x2 space-to-depth + 4x4/s1 conv (resnet.py)
     stem_s2d: bool = False
     # the geometric variants' and rgbd's rotation head becomes the rgb
@@ -305,6 +311,27 @@ class PoseNet(nn.Module):
         z = z.clamp(DEPTH_MIN_M, DEPTH_GUARD_MAX_M)
         return pinhole_xy_from_z(z, torch.stack([u, v], dim=-1), camera_matrix)
 
+    def tower_features(self, inputs: Dict[str, torch.Tensor],
+                       tower_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+        """{tower name: [B, 2048] features} of `inputs` ({tower name: its
+        NHWC input}), in the parameters' dtype. The towers compute in
+        tower_dtype, or config.dtype when it is None: float32 (or the
+        parameters' own dtype) runs them in the parameters' dtype whatever
+        the input dtype; torch.bfloat16 runs them under torch.autocast in
+        that dtype and rounds their features to it, as flax's
+        ResNet50(dtype=...) computes them."""
+        dtype = self.rot_out.weight.dtype
+        if tower_dtype is None:
+            tower_dtype = self.config.dtype
+        if tower_dtype in (torch.float32, dtype):
+            return {name: getattr(self, name)(x.to(dtype)) for name, x in inputs.items()}
+        device = next(iter(inputs.values())).device
+        # no cast cache: each weight is cast once a forward anyway, and a
+        # cache would outlive a CUDA graph's capture
+        with torch.autocast(device.type, dtype=tower_dtype, cache_enabled=False):
+            feats = {name: getattr(self, name)(x.to(dtype)) for name, x in inputs.items()}
+        return {k: v.to(tower_dtype).to(dtype) for k, v in feats.items()}
+
     def forward(self, rgb: torch.Tensor, depth: Optional[torch.Tensor] = None,
                 depth_raw: Optional[torch.Tensor] = None,
                 bbox_center: Optional[torch.Tensor] = None,
@@ -314,20 +341,11 @@ class PoseNet(nn.Module):
         """rgb [B, H, W, 3] normalized; depth [B, H, W, 1] normalized (rgbd);
         depth_raw [B, H, W] metres, bbox_center [B, 2] pixels and
         camera_matrix [B, 3, 3] for the geometric variants; generator for
-        the dropouts in train mode. The float path runs in the parameters'
-        dtype (f32 unless the module was converted) whatever the input
-        dtype. tower_dtype (torch.bfloat16: mixed-precision training) runs
-        the ResNet50 towers under torch.autocast in that dtype and rounds
-        their features to it, as flax's ResNet50(dtype=...) computes them;
-        the heads stay in the parameters' dtype, as flax promotes them."""
-        dtype = self.rot_out.weight.dtype
-        inputs = self.tower_inputs(rgb, depth)
-        if tower_dtype is None or tower_dtype == dtype:
-            feats = {name: getattr(self, name)(x.to(dtype)) for name, x in inputs.items()}
-        else:
-            with torch.autocast(rgb.device.type, dtype=tower_dtype):
-                feats = {name: getattr(self, name)(x.to(dtype)) for name, x in inputs.items()}
-            feats = {k: v.to(tower_dtype).to(dtype) for k, v in feats.items()}
+        the dropouts in train mode. The towers compute as tower_features
+        says, in tower_dtype (the train step's) or config.dtype (serving);
+        the heads stay in the parameters' dtype, on the towers' rounded
+        features, as flax promotes them."""
+        feats = self.tower_features(self.tower_inputs(rgb, depth), tower_dtype)
         return self.heads(feats, rgb, depth_raw, bbox_center, camera_matrix, generator)
 
 

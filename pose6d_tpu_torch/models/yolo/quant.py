@@ -6,9 +6,8 @@ The towers' recipe (ops/quant.py): every ConvBN folds its BatchNorm
 int8, its input to one static scale from a calibration pass, and the conv
 runs s8 x s8 -> s32 (conv_s8s32) with the dequantize and SiLU in
 compute_dtype. The six 1x1 head output convs (box and class logits, with a
-bias and no BN) stay float, as in the JAX package. The JAX package's
-quantize_yolo_folded is ops.quant.quantize_folded, which passes those
-through.
+bias and no BN) stay float, as in the JAX package: quantize_yolo_folded
+(ops.quant.quantize_folded) passes them through.
 
 Trees are keyed by the JAX package's paths ("backbone/stem",
 "backbone/c2f_1/m0/cv1", "head/cls2_out", ...), the port's module names
@@ -20,7 +19,7 @@ exists once, in model.py.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable
 
 import torch
 import torch.nn.functional as F
@@ -118,22 +117,35 @@ def yolo_int8_model(q: Dict[str, dict], cfg: YoloConfig,
     return _rewired(cfg, convbn, lambda path: _float_out(q[path]))
 
 
+def quantize_yolo_folded(folded: Dict[str, dict], act_scales: Dict[str, float]) -> Dict[str, dict]:
+    """fold_yolo's tree with its ConvBN weights per-channel int8 and the
+    act_scales as their input scales; the head output convs stay float."""
+    return quantize_folded(folded, act_scales)
+
+
+def yolo_int8_forward(q: Dict[str, dict], cfg: YoloConfig, x: torch.Tensor,
+                      compute_dtype=torch.float32):
+    """One int8 forward of the detector on NHWC frames x: the JAX package's
+    functional form of yolo_int8_model(q, cfg, compute_dtype)(x), which a
+    server builds once instead."""
+    return yolo_int8_model(q, cfg, compute_dtype)(x)
+
+
 def calibrate_yolo(folded: Dict[str, dict], cfg: YoloConfig, batches: Iterable,
-                   reduce_max: Optional[Callable] = None) -> Dict[str, float]:
+                   group=None) -> Dict[str, float]:
     """{path: input scale} of every ConvBN: its input's abs max over the f32
     folded forward of `batches` (NHWC frames as the detector takes them;
-    reduce_max: see ops.quant.observe_act_scales)."""
+    group: see ops.quant.observe_act_scales)."""
     device = folded["backbone/stem"]["w"].device
     return observe_act_scales(
         lambda x, observer: yolo_folded_forward(folded, cfg, x, observer=observer),
-        batches, device, reduce_max)
+        batches, device, group=group)
 
 
 def quantize_yolo_from_variables(model: YoloV8, calib_batches: Iterable,
-                                 reduce_max: Optional[Callable] = None) -> Dict[str, dict]:
+                                 group=None) -> Dict[str, dict]:
     """One-call PTQ of the detector (eval-mode BN folded) over calibration
     frames ([B, H, W, 3], normalized to [0, 1]): the int8 tree for
     yolo_int8_model."""
     folded = fold_yolo(model)
-    return quantize_folded(folded, calibrate_yolo(folded, model.cfg, calib_batches,
-                                                  reduce_max))
+    return quantize_yolo_folded(folded, calibrate_yolo(folded, model.cfg, calib_batches, group))

@@ -218,6 +218,24 @@ def random_erasing_batch(generator: torch.Generator, img: torch.Tensor,
     return erase_boxes(img, *(_block(t, B, rows) for t in (take, y0, x0, h, w)))
 
 
+def color_jitter(generator: torch.Generator, img: torch.Tensor,
+                 cfg: AugmentConfig) -> torch.Tensor:
+    """ColorJitter on one image [H, W, 3]: color_jitter_batch on a batch of
+    one (the train path calls the batch form)."""
+    return color_jitter_batch(generator, img[None], cfg)[0]
+
+
+def random_grayscale(generator: torch.Generator, img: torch.Tensor, p: float) -> torch.Tensor:
+    """RandomGrayscale on one image [H, W, 3], with probability p."""
+    return random_grayscale_batch(generator, img[None], p)[0]
+
+
+def random_erasing(generator: torch.Generator, img: torch.Tensor,
+                   cfg: AugmentConfig) -> torch.Tensor:
+    """RandomErasing (value 0) on one normalized image [H, W, C]."""
+    return random_erasing_batch(generator, img[None], cfg)[0]
+
+
 def train_augment(generator: torch.Generator, rgb: torch.Tensor,
                   cfg: AugmentConfig = AugmentConfig(), rows=None) -> torch.Tensor:
     """The train-time stack on a batch [B, H, W, 3] (uint8, or float in

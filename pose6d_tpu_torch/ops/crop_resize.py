@@ -72,13 +72,17 @@ def _interp_matrix(start: torch.Tensor, size: torch.Tensor, in_dim: int,
 
 def crop_resize_matmul(images: torch.Tensor, x1: torch.Tensor,
                        y1: torch.Tensor, size: torch.Tensor, out_size: int,
-                       compute_dtype=torch.float32) -> torch.Tensor:
+                       compute_dtype=torch.float32, src_scale: float = 1.0) -> torch.Tensor:
     """Crop+resize as two batched matmuls, V_y @ img @ V_x^T, in
     compute_dtype (bf16 for image data feeding a bf16 network, f32 for
-    metric depth). [B, H, W, C] -> [B, S, S, C] float32."""
+    metric depth). [B, H, W, C] -> [B, S, S, C] float32. src_scale is
+    folded into V_y (in compute_dtype, the scale rounded to it first), so
+    e.g. uint8-valued frames crop straight to [0, 1] with 1/255."""
     B, H, W, C = images.shape
     vy = _interp_matrix(y1, size, H, out_size).to(compute_dtype)
     vx = _interp_matrix(x1, size, W, out_size).to(compute_dtype)
+    if src_scale != 1.0:
+        vy = vy * torch.tensor(src_scale, dtype=compute_dtype, device=vy.device)
     images = images.to(compute_dtype)
     tmp = torch.einsum("btw,bhwc->bhtc", vx, images)
     out = torch.einsum("bsh,bhtc->bstc", vy, tmp)
@@ -87,7 +91,8 @@ def crop_resize_matmul(images: torch.Tensor, x1: torch.Tensor,
 
 def crop_resize_matmul_windowed(images: torch.Tensor, x1: torch.Tensor,
                                 y1: torch.Tensor, size: torch.Tensor, out_size: int,
-                                window: int, compute_dtype=torch.float32) -> torch.Tensor:
+                                window: int, compute_dtype=torch.float32,
+                                src_scale: float = 1.0) -> torch.Tensor:
     """crop_resize_matmul on a per-sample [window, window] slice of each
     frame: the interpolation matrices and the matmuls' K shrink from H, W
     to window. The slice starts at trunc(x1), trunc(y1) clipped into the
@@ -104,7 +109,7 @@ def crop_resize_matmul_windowed(images: torch.Tensor, x1: torch.Tensor,
     cols = (wx0[:, None] + off)[:, None, :]  # [B, 1, window]
     sub = images[torch.arange(B, device=images.device)[:, None, None], rows, cols]
     return crop_resize_matmul(sub, x1 - wx0.to(x1.dtype), y1 - wy0.to(y1.dtype), size,
-                              out_size, compute_dtype)
+                              out_size, compute_dtype, src_scale)
 
 
 def crop_params_from_bbox(bbox_xywh: torch.Tensor, expansion: float = 1.2):

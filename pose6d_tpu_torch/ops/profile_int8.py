@@ -12,9 +12,10 @@ PoseNet's tower of convert.init_posenet_weights), crops uniform(-2, 2)
 divide 32: the detector runs at native resolution), both in bf16; the int8
 tree is ops/quant.quantize_resnet_from_variables over the first 8 crops in
 f32, the detector's models/yolo/quant.quantize_yolo_from_variables over
-the first 4 frames. The port's unfolded towers run in f32 (ROADMAP §C), so
-its bf16 tower is ops/quant.folded_resnet50_forward in bf16, with the stem
-and stage 1-4 kernels at img 224 (without them elsewhere); "tower_bf16"
+the first 4 frames. The bf16 tower is ops/quant.folded_resnet50_forward in
+bf16 (the JAX script's is the unfolded ResNet50(dtype=bf16); the folded
+tower is the one the hand-written kernels serve), with the stem and stage
+1-4 kernels at img 224 (without them elsewhere); "tower_bf16"
 says which ran, and "tower_bf16_vs_cudnn_rel_l2" is its features' rel-L2
 from the same folded tower on cuDNN alone (null without the kernels).
 

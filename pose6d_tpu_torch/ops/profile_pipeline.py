@@ -20,9 +20,15 @@ docstrings state their JSON lines.
 Set-up, bench.py's (bench.py:29-68): YOLOv8n (YoloConfig's defaults:
 width 0.25, depth 1/3, 13 classes) in bf16, conf_thresh 0, nms_pre_topk 32
 for rgbd and 64 otherwise, compute bf16, seeded weights, uint8 frames and
-metric depth (0.2-1.5 m) drawn by numpy, LineMOD's K. The rows (ROWS):
-  rgb                    the float pipeline; its towers run in f32 (the
-                         port's unfolded towers do, ROADMAP §C);
+metric depth (0.2-1.5 m) drawn by numpy, LineMOD's K, PoseNetConfig's
+dtype bf16. The rows (ROWS):
+  rgb                    bench.py's headline row: the float pipeline, its
+                         towers in bf16 (PoseNetConfig.dtype), their f32
+                         weights cast at every call as flax casts them;
+  rgb_f32                the same pipeline and weights with f32 towers
+                         (PR 17's rgb row);
+  rgbd                   bench.py's flagship row: the float rgbd pipeline,
+                         bf16 towers, the weights of rgbd_folded;
   rgbd_folded            BN-folded bf16 towers, stem and layer1 kernels;
   rgbd_geometric_folded  BN-folded bf16 tower, stem and stage 1-4 kernels;
   rgb_maxobj4            rgb with 4 poses per frame (towers at 4x the
@@ -33,8 +39,8 @@ metric depth (0.2-1.5 m) drawn by numpy, LineMOD's K. The rows (ROWS):
                          int8 towers and detector.
 The kernels need img 224; at another --img-size the folded rows fold
 without them. Each JSON line's "name" says what ran. Default runs: every
-row at batch 8 (PERF.md §2's metric) and rgbd_folded at 128 (the JAX
-benchmark's batch).
+row at batch 8 (PERF.md §2's metric), and rgbd and rgbd_folded at 128
+(bench_e2e's batch).
 
 For each run:
   1. stages alone, after profile_rgbd_stages.py: the uint8 -> compute
@@ -147,9 +153,10 @@ import torch
 SEED = 0
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16, the peak PERF.md §6 uses
 L2_BYTES = 50e6
-ROWS = ("rgb", "rgbd_folded", "rgbd_geometric_folded", "rgb_maxobj4", "rgbd_int8")
-DEFAULT_RUNS = ("rgb@8", "rgbd_folded@8", "rgbd_geometric_folded@8", "rgb_maxobj4@8",
-                "rgbd_int8@8", "rgbd_folded@128")
+ROWS = ("rgb", "rgb_f32", "rgbd", "rgbd_folded", "rgbd_geometric_folded", "rgb_maxobj4",
+        "rgbd_int8")
+DEFAULT_RUNS = ("rgb@8", "rgb_f32@8", "rgbd@8", "rgbd_folded@8", "rgbd_geometric_folded@8",
+                "rgb_maxobj4@8", "rgbd_int8@8", "rgbd@128", "rgbd_folded@128")
 SUMMED = ("convert", "detector", "decode_nms", "rgb_crop", "depth_crop", "posenet")
 # the hand-written kernels' names (csrc/*.cu), as a trace gives them
 # (demangled "void stem_tc_kernel<3>(...)" or mangled "_Z14stem_tc_kernelILi3E...")
@@ -162,17 +169,21 @@ EVAL_FRAMES = 40      # frames per folder of the eval tree: 4 of each in its val
 @dataclasses.dataclass(frozen=True)
 class Row:
     variant: str
+    seed: int              # the pose weights' seed, SEED + 2 + seed
     max_objects: int = 1
     fold: tuple = ()       # the kernels at img 224: "stem", "layer1", stages 1-4
     int8: bool = False
+    towers: torch.dtype = torch.bfloat16  # the float towers' dtype (unfolded rows)
 
 
 ROW_SPECS = {
-    "rgb": Row("rgb"),
-    "rgbd_folded": Row("rgbd", fold=("stem", "layer1")),
-    "rgbd_geometric_folded": Row("rgbd_geometric", fold=("stem", 1, 2, 3, 4)),
-    "rgb_maxobj4": Row("rgb", max_objects=4, fold=("stem", "layer1")),
-    "rgbd_int8": Row("rgbd", fold=("stem", "layer1"), int8=True),
+    "rgb": Row("rgb", 0),
+    "rgb_f32": Row("rgb", 0, towers=torch.float32),
+    "rgbd": Row("rgbd", 1),
+    "rgbd_folded": Row("rgbd", 1, fold=("stem", "layer1")),
+    "rgbd_geometric_folded": Row("rgbd_geometric", 2, fold=("stem", 1, 2, 3, 4)),
+    "rgb_maxobj4": Row("rgb", 3, max_objects=4, fold=("stem", "layer1")),
+    "rgbd_int8": Row("rgbd", 4, fold=("stem", "layer1"), int8=True),
 }
 
 
@@ -189,8 +200,8 @@ def build_pipeline(row: str, img_size: int, det_size: int, device, calib=None,
     from ..models.yolo.model import YoloConfig
 
     spec = ROW_SPECS[row]
-    pose_cfg = PoseNetConfig(variant=spec.variant, img_size=img_size)
-    yolo_state, pose_state = _seeded_weights(pose_cfg, SEED + 2 + ROWS.index(row))
+    pose_cfg = PoseNetConfig(variant=spec.variant, img_size=img_size, dtype=spec.towers)
+    yolo_state, pose_state = _seeded_weights(spec.variant, img_size, SEED + 2 + spec.seed)
     cfg = PipelineConfig(variant=spec.variant, img_size=img_size, det_size=det_size,
                          conf_thresh=0.0, compute_dtype=torch.bfloat16,
                          max_objects=spec.max_objects,
@@ -198,7 +209,7 @@ def build_pipeline(row: str, img_size: int, det_size: int, device, calib=None,
     pipe = PosePipeline(cfg, YoloConfig(dtype=torch.bfloat16), yolo_state, pose_state, pose_cfg,
                         device=device)
     if not spec.fold:
-        return pipe, f"{row}_f32_towers"
+        return pipe, f"{spec.variant}_{_DTYPE_TAGS[spec.towers]}_towers"
     kernels = spec.fold if img_size == 224 else ()
     stages = tuple(k for k in kernels if isinstance(k, int))
     pipe.fold_backbones(pallas_stem="stem" in kernels, pallas_layer1="layer1" in kernels,
@@ -211,14 +222,19 @@ def build_pipeline(row: str, img_size: int, det_size: int, device, calib=None,
     return pipe, "_".join([row.removesuffix("_folded"), "folded_bf16", *tags])
 
 
+_DTYPE_TAGS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
 @functools.lru_cache(maxsize=2)
-def _seeded_weights(pose_cfg, pose_seed: int) -> tuple:
+def _seeded_weights(variant: str, img_size: int, pose_seed: int) -> tuple:
     """The detector's (seed SEED + 1) and the pose net's seeded state_dicts,
     made once for the arms of a sweep (a pipeline copies them)."""
     from ..convert import init_posenet_weights, init_yolo_weights
+    from ..models.posenet import PoseNetConfig
     from ..models.yolo.model import YoloConfig
 
-    return init_yolo_weights(YoloConfig(), SEED + 1), init_posenet_weights(pose_cfg, pose_seed)
+    return init_yolo_weights(YoloConfig(), SEED + 1), init_posenet_weights(
+        PoseNetConfig(variant=variant, img_size=img_size), pose_seed)
 
 
 def ring_size(batch_bytes: int) -> int:
@@ -310,14 +326,14 @@ def run_steps(steps, base: dict, span=None) -> dict:
 
 def _tower(pipe, name: str, x):
     """One tower's features as the request computes them: the serving tower
-    (folded or int8) or the float module in its parameters' dtype."""
+    (folded or int8) or the float module's, in its PoseNetConfig.dtype."""
     from ..models.posenet_serving import backbone_features
 
     model = pipe.posenet
     if pipe._folded or pipe._quantized:
         return backbone_features(model, name, x, pipe.cfg.compute_dtype,
                                  pipe._folded.get(name), pipe._quantized.get(name))
-    return getattr(model, name)(x.to(model.rot_out.weight.dtype))
+    return model.tower_features({name: x})[name]
 
 
 def isolated_stages(pipe, states: list) -> dict:

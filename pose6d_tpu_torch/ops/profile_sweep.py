@@ -9,7 +9,8 @@ ops/profile_pipeline.py, whose Clock reads them:
 Each arm is a pipeline of profile_pipeline.build_pipeline (the JAX
 benchmark's set-up, seeded weights) over a ring of requests past 2x the
 card's L2; frames/s is batch / the Clock's window ms, warm-up left out.
-  rgb   the rgb row (f32 towers) at nms_pre_topk 64 / 32 / 16 and
+  rgb   the rgb row (bf16 float towers, bench.py's pipeline, which
+        scripts/bench_sweep.py builds) at nms_pre_topk 64 / 32 / 16 and
         bf16_params, at the first of --sweep-batches (128);
   rgbd  the rgbd_folded row (bf16 towers, stem and layer1 kernels) at each
         of --sweep-batches (128 192 256), then bf16_params and

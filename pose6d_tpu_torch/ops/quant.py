@@ -11,7 +11,7 @@ as the JAX package leaves it to XLA.
 The int8 mode is post-training quantization: per-output-channel symmetric
 int8 weights (`quantize_weights_per_channel`), one static activation scale
 per conv input from a calibration pass over the folded forward
-(`calibrate_act_scales`: the abs max of x), and
+(`calibrate_act_scales`: the abs max of x, or a percentile of |x|), and
 `int8_resnet50_forward`, whose convolutions are s8 x s8 -> s32
 (`conv_s8s32`) with the requantize, ReLU and residual epilogues in
 compute_dtype, each cast and rounding where the JAX package has it. The
@@ -22,6 +22,7 @@ card alike.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
@@ -238,44 +239,73 @@ def int8_resnet50_forward(q: Dict[str, dict], x: torch.Tensor,
     return xf.float().mean(dim=(1, 2)).to(cd)
 
 
+def abs_percentile(x: torch.Tensor, percentile: float) -> torch.Tensor:
+    """The percentile of |x| over all its elements by numpy's default
+    'linear' rule, as jnp.percentile takes it: the sorted values at floor
+    and ceil of q / 100 * (n - 1), interpolated. Two kthvalue selections
+    (torch.quantile refuses inputs above 2**24 elements; a layer1 input at
+    batch 128 holds 25.7 M)."""
+    a = x.detach().abs().reshape(-1)
+    pos = percentile / 100.0 * (a.numel() - 1)
+    lo = math.floor(pos)
+    low = a.kthvalue(lo + 1).values
+    if pos == lo:
+        return low
+    return low + (a.kthvalue(lo + 2).values - low) * (pos - lo)
+
+
 def observe_act_scales(run: Callable, batches: Iterable, device,
-                       reduce_max: Optional[Callable] = None) -> Dict[str, float]:
+                       percentile: Optional[float] = None, group=None) -> Dict[str, float]:
     """Static activation scales: run(x, observer) is a folded forward over
     each calibration batch (as f32 on `device`) calling observer(name, h)
-    with each conv's input; per conv, the largest abs max of its input
-    over the batches / 127,
-    as Python floats. Reads each statistic back to the host: calibration only.
-    reduce_max: applied to each batch's stacked abs maxes (under a mesh,
-    their MAX over the data group, whose ranks hold different rows)."""
+    with each conv's input; per conv, the largest over the batches of its
+    input's abs max (or, with `percentile`, abs_percentile of its input)
+    / 127, as Python floats. Reads each statistic back to the host:
+    calibration only. group: under a mesh, the data group (a
+    parallel.collectives.Group), whose ranks hold different rows of each
+    batch: the abs maxes are reduced with MAX over it, and a percentile is
+    taken over the inputs gathered from it, so that every rank holds the
+    scales of the whole batch."""
+    import torch.distributed as dist
+
+    from ..parallel.collectives import all_gather_rows, all_reduce_
+
     maxes: Dict[str, float] = {}
     for xb in batches:
         vals = {}
 
         def observer(name, h):
-            vals[name] = h.abs().amax()
+            if percentile is None:
+                vals[name] = h.abs().amax()
+            else:
+                h = h if group is None else all_gather_rows(h.reshape(-1), group)
+                vals[name] = abs_percentile(h, percentile)
 
         run(torch.as_tensor(xb, dtype=torch.float32, device=device), observer)
-        if reduce_max is not None:
-            vals = dict(zip(vals, reduce_max(torch.stack([v.float() for v in vals.values()]))))
+        if group is not None and percentile is None:
+            stacked = torch.stack([v.float() for v in vals.values()])
+            vals = dict(zip(vals, all_reduce_(stacked, group, dist.ReduceOp.MAX)))
         for name, v in vals.items():
             maxes[name] = max(maxes.get(name, 0.0), float(v))
     return {name: max(v, 1e-12) / 127.0 for name, v in maxes.items()}
 
 
 def calibrate_act_scales(folded: Dict[str, dict], batches: Iterable,
-                         reduce_max: Optional[Callable] = None) -> Dict[str, float]:
+                         percentile: Optional[float] = None, group=None) -> Dict[str, float]:
     """{conv name: input scale} of a ResNet50 tower from the f32 folded
-    forward over `batches` (NHWC [B, H, W, C]): each conv input's abs max
-    (reduce_max: see observe_act_scales)."""
+    forward over `batches` (NHWC [B, H, W, C]): each conv input's abs max,
+    or its `percentile` of |x| (group: see observe_act_scales)."""
     device = folded["conv1"]["w"].device
     return observe_act_scales(
         lambda x, observer: folded_resnet50_forward(folded, x, observer=observer),
-        batches, device, reduce_max)
+        batches, device, percentile, group)
 
 
 def quantize_resnet_from_variables(tower: ResNet50, calib_batches: Iterable,
-                                   reduce_max: Optional[Callable] = None) -> Dict[str, dict]:
+                                   percentile: Optional[float] = None,
+                                   group=None) -> Dict[str, dict]:
     """One-call PTQ of a ResNet50 tower (eval-mode BN folded) over
     calibration batches: the int8 tree for int8_resnet50_forward."""
     folded = fold_bn_resnet(tower)
-    return quantize_folded(folded, calibrate_act_scales(folded, calib_batches, reduce_max))
+    return quantize_folded(folded, calibrate_act_scales(folded, calib_batches, percentile,
+                                                        group))

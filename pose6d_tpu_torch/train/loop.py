@@ -303,7 +303,10 @@ def model_inputs(variant: str, batch: Dict[str, torch.Tensor], rgb: torch.Tensor
 
 
 def pose_config(cfg: TrainConfig) -> PoseNetConfig:
-    """The PoseNetConfig of a TrainConfig's variant and flags."""
+    """The PoseNetConfig of a TrainConfig's variant and flags. Its dtype
+    stays f32: the train step passes compute_dtype as the towers' dtype,
+    and validation and the tools run f32 towers, as the JAX package's
+    eval step replaces its model's dtype with f32."""
     return PoseNetConfig(
         variant=cfg.variant, img_size=cfg.img_size, rot_head_wide=cfg.rot_head_wide,
         fusion_attention=cfg.fusion_attention, z_from_backbone=cfg.z_from_backbone,

@@ -1,8 +1,10 @@
 """The request trace (pose6d_tpu_torch/ops/profile_pipeline.py) on the CPU
 at a small size: 160x120 frames (letterboxed onto a 160 canvas), YOLOv8n,
 PoseNet at img 64 (the folded rows then fold without the kernels, which
-need 224), batch 2, --device cpu, one run of the tool for rgb, rgbd and
-rgbd_geometric with a trace and the eval_e2e batch. Each row prints its
+need 224), batch 2, --device cpu, one run of the tool for rgb (bench.py's
+row: bf16 float towers), rgbd and rgbd_geometric folded with a trace and
+the eval_e2e batch; the unfolded rows rgb, rgb_f32 and rgbd build the
+float pipeline with towers in their dtype (a hook sees it). Each row prints its
 JSON line with the fields the module docstring states, its full prefix
 (request_steps, the pipeline's own methods) equals PosePipeline.__call__
 bit for bit, and its stage FLOPs are the port's own counts; the counts of
@@ -66,7 +68,7 @@ def test_row_line(run, i):
     row = ROWS[i]
     depth = row != "rgb"
     assert (line["row"], line["batch"], line["pose_batch"]) == (row, BATCH, BATCH)
-    assert line["name"] == {"rgb": "rgb_f32_towers", "rgbd_folded": "rgbd_folded_bf16",
+    assert line["name"] == {"rgb": "rgb_bf16_towers", "rgbd_folded": "rgbd_folded_bf16",
                             "rgbd_geometric_folded": "rgbd_geometric_folded_bf16"}[row]
     assert (line["device"], line["clock"], line["sync_free"]) == ("cpu", "host", None)
     assert line["full_prefix_equals_call"] is True
@@ -111,6 +113,35 @@ def test_row_line(run, i):
     assert spans == {f"stage:{n.lstrip('+')}" for n in names[:-1]}
     assert set(line["top_ops"]) == {n.lstrip("+") for n in names[:-1]}
     assert any("conv" in op for op, _, _ in line["top_ops"]["posenet"])
+
+
+@pytest.mark.parametrize("row,dtype", [("rgb", torch.bfloat16), ("rgb_f32", torch.float32),
+                                       ("rgbd", torch.bfloat16)])
+def test_float_rows_tower_dtype(row, dtype):
+    """The unfolded rows (bench.py's rgb and rgbd rows, and PR 17's rgb as
+    rgb_f32): the float pipeline, its towers in the row's dtype, seen by a
+    hook on each tower's last conv over one request of the row's ring;
+    rgb and rgb_f32 share their weights, rgbd has rgbd_folded's."""
+    import numpy as np
+
+    from pose6d_tpu_torch.ops import profile_pipeline as pp
+
+    pipe, name = pp.build_pipeline(row, 32, 640, "cpu")
+    variant = pp.ROW_SPECS[row].variant
+    assert name == f"{variant}_{'bf16' if dtype == torch.bfloat16 else 'f32'}_towers"
+    assert not pipe._folded and not pipe._quantized and pipe.pose_cfg.dtype == dtype
+    assert pipe.cfg.nms_pre_topk == (32 if variant == "rgbd" else 64)
+    twin = {"rgb": "rgb_f32", "rgb_f32": "rgb", "rgbd": "rgbd_folded"}[row]
+    other, _ = pp.build_pipeline(twin, 32, 640, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(pipe.posenet.state_dict().values(),
+                                                 other.posenet.state_dict().values()))
+    seen = []
+    for tower in pipe.posenet.towers:
+        getattr(pipe.posenet, tower).layer4_2.conv3.register_forward_hook(
+            lambda m, a, out: seen.append(out.dtype))
+    r = pp.make_ring(pipe, 2, (64, 96), 1, np.random.default_rng(0))[0]
+    out = pipe(r["frames"], r["K"], r["depth"])
+    assert seen == [dtype] * len(pipe.posenet.towers) and torch.isfinite(out["rotation"]).all()
 
 
 def test_eval_batch_line(run):
@@ -205,7 +236,7 @@ def test_sweep_line(kind):
         arm = line["arms"][k]
         assert set(arm) == ARM_KEYS and line[k] == arm["fps"]
         assert arm["fps"] == pytest.approx(2 / (arm["ms"] / 1e3)) and arm["card_ms"] is None
-        assert arm["name"] == ("rgb_f32_towers" if kind == "rgb" else "rgbd_folded_bf16")
+        assert arm["name"] == ("rgb_bf16_towers" if kind == "rgb" else "rgbd_folded_bf16")
         assert arm["bf16_params_cast"] == (DETECTOR_CASTS if "bf16" in k else 0)
         assert arm["nms_pre_topk"] == {"topk32": 32, "topk16": 16}.get(
             k, 64 if kind == "rgb" else 32)

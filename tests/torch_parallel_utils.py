@@ -324,13 +324,13 @@ def leaf_errors(got: dict, want: dict) -> dict:
     return errs
 
 
-def pipeline_rank(rank, weights_path, mesh_shape, frames, K, depth, mode):
+def pipeline_rank(rank, weights_path, mesh_shape, frames, K, depth, mode, percentile=None):
     """The port's rgbd PosePipeline at S (the weights of
     torch_port_utils.pipeline_weights, conf 0, f32) sharded on
     make_mesh(mesh_shape), in `mode`: "float", "folded" (fold_backbones
     after shard), or "int8-before" / "int8-after" (quantize_backbones on
-    the request before / after shard). Every rank is called with the whole
-    request. Returns the outputs (numpy, the detections dict left out), the
+    the request, with `percentile`, before / after shard). Every rank is
+    called with the whole request. Returns the outputs (numpy, the detections dict left out), the
     digest of every output and, for int8, the towers' activation scales."""
     from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
     from pose6d_tpu_torch.models.posenet import PoseNetConfig
@@ -343,12 +343,12 @@ def pipeline_rank(rank, weights_path, mesh_shape, frames, K, depth, mode):
                         YoloConfig(num_classes=2, width=0.125), ystate, pstate,
                         PoseNetConfig(variant="rgbd", img_size=S), device="cpu")
     if mode == "int8-before":
-        pipe.quantize_backbones(frames, K, depth)
+        pipe.quantize_backbones(frames, K, depth, percentile)
     pipe.shard(make_mesh(mesh_shape))
     if mode == "folded":
         pipe.fold_backbones()
     elif mode == "int8-after":
-        pipe.quantize_backbones(frames, K, depth)
+        pipe.quantize_backbones(frames, K, depth, percentile)
     out = pipe(frames, K, depth)
     flat = {k: v for k, v in out.items() if k != "detections"}
     scales = {name: {conv: float(e["a"]) for conv, e in tree.items()}

@@ -117,11 +117,12 @@ def pipeline_weights(variant: str, nc: int = 2):
     return yvars, pvars, yolo_from_jax(yvars), posenet_from_jax(pvars)
 
 
-def make_pipeline_pair(variant: str, nc: int = 2, **cfg):
+def make_pipeline_pair(variant: str, nc: int = 2, pose_dtype=None, **cfg):
     """The JAX PosePipeline and the port's on pipeline_weights(variant, nc),
     both at PIPE_IMG with conf_thresh 0 and compute f32 unless `cfg` (more
     PipelineConfig fields, set on both; compute_dtype as a torch dtype)
-    says otherwise; the port's on the CPU. Returns (jax_pipe, port_pipe)."""
+    says otherwise, their PoseNetConfig's dtype pose_dtype (a torch dtype;
+    f32 when None); the port's on the CPU. Returns (jax_pipe, port_pipe)."""
     import jax.numpy as jnp
     import torch
 
@@ -135,15 +136,20 @@ def make_pipeline_pair(variant: str, nc: int = 2, **cfg):
     yvars, pvars, ystate, pstate = pipeline_weights(variant, nc)
     S = PIPE_IMG
     cfg = {"conf_thresh": 0.0, "compute_dtype": torch.float32, **cfg}
-    jcd = getattr(jnp, str(cfg["compute_dtype"]).removeprefix("torch."))
+    pose_dtype = torch.float32 if pose_dtype is None else pose_dtype
+
+    def jax_dtype(dt):
+        return getattr(jnp, str(dt).removeprefix("torch."))
+
     jpipe = JPosePipeline(
-        JPipelineConfig(variant=variant, img_size=S, **{**cfg, "compute_dtype": jcd}),
+        JPipelineConfig(variant=variant, img_size=S,
+                        **{**cfg, "compute_dtype": jax_dtype(cfg["compute_dtype"])}),
         JYoloConfig(num_classes=nc, width=0.125), yvars, pvars,
-        JPoseNetConfig(variant=variant, img_size=S, dtype=jnp.float32))
+        JPoseNetConfig(variant=variant, img_size=S, dtype=jax_dtype(pose_dtype)))
     tpipe = PosePipeline(
         PipelineConfig(variant=variant, img_size=S, **cfg),
         YoloConfig(num_classes=nc, width=0.125), ystate, pstate,
-        PoseNetConfig(variant=variant, img_size=S), device="cpu")
+        PoseNetConfig(variant=variant, img_size=S, dtype=pose_dtype), device="cpu")
     return jpipe, tpipe
 
 
