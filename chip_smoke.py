@@ -2544,12 +2544,51 @@ def mesh_rank(rank: int, job: dict) -> None:
         dist.destroy_process_group()
 
 
+def shard_bf16_float(pipe, states: dict, mesh, f, K, d) -> None:
+    """Phase 14 (a)'s unfolded case: a pipeline of `pipe`'s config and of
+    the weights in states ({"yolo", "pose"}: state_dicts) built without
+    pose_cfg, so that its towers run in the compute dtype (bf16, the JAX
+    pipeline's default), served without a mesh and then sharded on `mesh`.
+    Checks the towers' conv outputs bf16 by hook in both runs, no kernel
+    launched by either, and the sharded outputs bit-equal to the unsharded
+    ones."""
+    from pose6d_tpu_torch import _build
+    from pose6d_tpu_torch.infer.pipeline import PosePipeline
+
+    upipe = PosePipeline(pipe.cfg, pipe.yolo_cfg, states["yolo"], states["pose"],
+                         device=f.device)
+    check(upipe.pose_cfg.dtype == torch.bfloat16,
+          f"NCCL (1, 1) unfolded shard: the default towers' dtype {upipe.pose_cfg.dtype}")
+    towers = len(upipe.posenet.towers)
+    outs = []
+    with torch.inference_mode():
+        upipe(f, K, d)  # warm-up (cuDNN set-up), not counted
+        for m in (None, mesh):
+            if m is not None:
+                upipe.shard(m)
+            seen, hooks = tower_conv_dtypes(upipe)
+            sync(f.device)
+            _build.launch_counts.clear()
+            outs.append(upipe(f, K, d))
+            sync(f.device)
+            for h in hooks:
+                h.remove()
+            check(seen == [torch.bfloat16] * towers,
+                  f"NCCL (1, 1) unfolded shard (mesh {m is not None}): tower conv outputs {seen}")
+            check(not _build.launch_counts,
+                  f"NCCL (1, 1) unfolded shard: launched {dict(_build.launch_counts)}")
+    for k in ("rotation", "translation", "bbox_xywh", "class_id", "det_score"):
+        check(torch.equal(outs[1][k], outs[0][k]), f"NCCL (1, 1) unfolded bf16 shard: {k} differs")
+
+
 def phase_mesh(store, pipe, frames, depths, smi: str):
     """Data and head parallelism (parallel/) on the one card.
     (a) A world of one over NCCL, mesh (1, 1): a MESH_NCCL_STEPS-step
         make_train_epoch on phase 10's store and the folded rgbd pipeline
         (stem and layer1 kernels) sharded on it, each bit-equal to the same
-        run without a mesh (cuDNN deterministic for the epochs).
+        run without a mesh (cuDNN deterministic for the epochs); then the
+        unfolded pipeline with its default bf16 towers sharded on it
+        (shard_bf16_float), bit-equal to itself without a mesh, no kernel.
     (b) Two ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
         card), at full width: mesh_rank, against one-process references
         made here first (each step in f32 and in float64; hold_step). Returns
@@ -2632,11 +2671,13 @@ def phase_mesh(store, pipe, frames, depths, smi: str):
             check(torch.equal(got[k], want[k]), f"NCCL (1, 1) shard: {k} differs")
         check(_build.launch_counts["fused_stem_c3"] == 1 and _build.launch_counts["fused_layer1"] == 2,
               f"NCCL (1, 1) shard launches {dict(_build.launch_counts)}")
+        shard_bf16_float(pipe, serve, mesh, f, K, d)
     finally:
         dist.destroy_process_group()
     out["nccl_s"] = time.perf_counter() - t0
     log(f"  (a) NCCL world of 1, mesh (1, 1): {MESH_NCCL_STEPS}-step rgbd epoch at batch 32 and "
-        f"the folded rgbd pipeline sharded, both bit-equal to the runs without a mesh "
+        f"the folded rgbd pipeline sharded, both bit-equal to the runs without a mesh; the "
+        f"unfolded pipeline with its default bf16 towers sharded, bit-equal, no kernel "
         f"({out['nccl_s']:.1f}s)")
 
     # (b) gloo, two ranks on the one card: the references first

@@ -326,22 +326,31 @@ def leaf_errors(got: dict, want: dict) -> dict:
 
 def pipeline_rank(rank, weights_path, mesh_shape, frames, K, depth, mode, percentile=None):
     """The port's rgbd PosePipeline at S (the weights of
-    torch_port_utils.pipeline_weights, conf 0, f32) sharded on
-    make_mesh(mesh_shape), in `mode`: "float", "folded" (fold_backbones
-    after shard), or "int8-before" / "int8-after" (quantize_backbones on
-    the request, with `percentile`, before / after shard). Every rank is
-    called with the whole request. Returns the outputs (numpy, the detections dict left out), the
-    digest of every output and, for int8, the towers' activation scales."""
+    torch_port_utils.pipeline_weights, conf 0) sharded on
+    make_mesh(mesh_shape), in `mode`: "float" (compute f32, an explicit f32
+    PoseNetConfig), "float-bf16" (compute bf16 and no pose_cfg, so that the
+    towers run in bf16 as the JAX pipeline's default does), "folded"
+    (fold_backbones after shard, compute f32), or "int8-before" /
+    "int8-after" (quantize_backbones on the request, with `percentile`,
+    before / after shard, compute f32). Every rank is called with the whole
+    request. Returns the outputs (numpy, the detections dict left out), the
+    digest of every output, the dtypes of the towers' last conv outputs (a
+    forward hook on each) and, for int8, the towers' activation scales. A
+    tuple of modes serves each in this one world: {mode: its return}."""
     from pose6d_tpu_torch.infer.pipeline import PipelineConfig, PosePipeline
     from pose6d_tpu_torch.models.posenet import PoseNetConfig
     from pose6d_tpu_torch.models.yolo.model import YoloConfig
     from pose6d_tpu_torch.parallel import make_mesh
 
+    if not isinstance(mode, str):
+        return {m: pipeline_rank(rank, weights_path, mesh_shape, frames, K, depth, m, percentile)
+                for m in mode}
     ystate, pstate = torch.load(weights_path, weights_only=True)
+    bf16 = mode == "float-bf16"
     pipe = PosePipeline(PipelineConfig(variant="rgbd", img_size=S, conf_thresh=0.0,
-                                       compute_dtype=torch.float32),
+                                       compute_dtype=torch.bfloat16 if bf16 else torch.float32),
                         YoloConfig(num_classes=2, width=0.125), ystate, pstate,
-                        PoseNetConfig(variant="rgbd", img_size=S), device="cpu")
+                        None if bf16 else PoseNetConfig(variant="rgbd", img_size=S), device="cpu")
     if mode == "int8-before":
         pipe.quantize_backbones(frames, K, depth, percentile)
     pipe.shard(make_mesh(mesh_shape))
@@ -349,11 +358,18 @@ def pipeline_rank(rank, weights_path, mesh_shape, frames, K, depth, mode, percen
         pipe.fold_backbones()
     elif mode == "int8-after":
         pipe.quantize_backbones(frames, K, depth, percentile)
+    tower_dtypes = []
+    hooks = [getattr(pipe.posenet, name).layer4_2.conv3.register_forward_hook(
+        lambda m, a, out: tower_dtypes.append(out.dtype)) for name in pipe.posenet.towers]
     out = pipe(frames, K, depth)
+    for h in hooks:
+        h.remove()
     flat = {k: v for k, v in out.items() if k != "detections"}
     scales = {name: {conv: float(e["a"]) for conv, e in tree.items()}
               for name, tree in pipe._quantized.items()}
-    return {"out": {k: v.numpy() for k, v in flat.items()}, "scales": scales,
+    return {"out": {k: v.float().numpy() if v.is_floating_point() else v.numpy()
+                    for k, v in flat.items()},
+            "scales": scales, "tower_dtypes": tower_dtypes,
             "digest": digest(list(flat.values())
                              + [out["detections"][k] for k in sorted(out["detections"])])}
 
